@@ -1,0 +1,74 @@
+"""Carry weights and state between the JAX package and the port.
+
+The two packages meet only through numpy: the reference's trees (MLP
+parameters, problem data, a whole `AFTOState`) are handed over as numpy
+arrays, or anything `np.asarray` accepts, and come back as numpy for
+comparison.  No jax import is needed; a reference state is read by its
+field names, which the port's dataclasses share.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.cuts import spec_from_templates
+from repro_torch.core.types import (AFTOState, FlatCuts, InnerState2,
+                                    InnerState3, StaleView)
+
+# the nested containers of an AFTOState, by field name
+_NESTED = {"cuts_i": FlatCuts, "cuts_ii": FlatCuts, "inner3": InnerState3,
+           "inner2": InnerState2, "stale": StaleView}
+
+
+def to_torch(tree, device):
+    """A tree of arrays (dicts, lists, tuples, None) as tensors on
+    `device`, dtypes kept."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_torch(v, device) for v in tree)
+    return torch.as_tensor(np.array(tree), device=device)
+
+
+def to_numpy(tree):
+    """Tensors, trees of them and the port's state dataclasses as numpy
+    arrays; a dataclass becomes a dict by field name (a `FlatSpec` is
+    dropped)."""
+    if tree is None:
+        return None
+    if dataclasses.is_dataclass(tree):
+        return {f.name: to_numpy(getattr(tree, f.name))
+                for f in dataclasses.fields(tree) if f.name != "spec"}
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    return tree.detach().cpu().numpy()
+
+
+def state_from_reference(ref, device) -> AFTOState:
+    """The port's `AFTOState` from a reference state whose leaves are
+    numpy-convertible (e.g. `jax.tree.map(np.asarray, state)`).  The cut
+    layout is rebuilt from the converted z's, in the same column order
+    as the reference's."""
+    z1, z2, z3 = (to_torch(getattr(ref, k), device)
+                  for k in ("z1", "z2", "z3"))
+    n = int(np.asarray(ref.stale.t_hat).shape[0])
+    spec = spec_from_templates(n, z1, z2, z3)
+
+    def build(cls, obj):
+        kw = {}
+        for f in dataclasses.fields(cls):
+            if f.name == "spec":
+                kw["spec"] = spec
+            elif f.name in _NESTED:
+                kw[f.name] = build(_NESTED[f.name], getattr(obj, f.name))
+            else:
+                kw[f.name] = to_torch(getattr(obj, f.name), device)
+        return cls(**kw)
+
+    return build(AFTOState, ref)

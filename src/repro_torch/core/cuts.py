@@ -1,0 +1,211 @@
+"""mu-cut construction and hyper-polyhedral polytope maintenance.
+
+Counterpart of `repro/core/cuts.py`, canonical `FlatCuts` path.  A mu-cut
+(paper Eq. 23/24) linearizes a mu-weakly-convex constraint h(v) <= eps at
+the current point v0 into the linear inequality
+
+    <g, v>  <=  eps + mu (B_alpha + ||v0||^2) - h(v0) + <g, v0>  =: c
+
+(see the reference module's docstring for the derivation and the note on
+Eq. 23's printed constant).  The polytope is one dense f32 `(P, D)`
+matrix: `add_cut` writes one row (evicting the oldest when full),
+`drop_inactive` masks rows, and every consumer contracts the stored
+matrix directly; only the point vector is assembled per call.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.types import FlatCuts, FlatSpec
+from repro_torch.kernels import ops
+from repro_torch.utils.tree import (tree_dot, tree_flatten, tree_norm_sq,
+                                    tree_unflatten)
+
+_BLOCK_NAMES = ("a1", "a2", "a3", "b2", "b3")
+
+
+def spec_from_templates(n_workers: int, z1_tpl, z2_tpl, z3_tpl) -> FlatSpec:
+    """The FlatSpec for a polytope over these variable templates.
+
+    Column order is the sorted-key leaf order of (a1, a2, a3, b2, b3);
+    b-block point shapes carry the leading worker axis (N, ...)."""
+    tpls = (z1_tpl, z2_tpl, z3_tpl, z2_tpl, z3_tpl)
+    flat = [tree_flatten(t) for t in tpls]
+    shapes, dtypes = [], []
+    for b_idx, (leaves, _) in enumerate(flat):
+        lead = (int(n_workers),) if b_idx >= 3 else ()
+        shapes.extend(lead + tuple(l.shape) for l in leaves)
+        dtypes.extend(l.dtype for l in leaves)
+    sizes = tuple(int(np.prod(s)) if s else 1 for s in shapes)
+    offsets = tuple(int(o) for o in np.cumsum((0,) + sizes[:-1])) \
+        if sizes else ()
+    return FlatSpec(tdefs=tuple(tdef for _, tdef in flat),
+                    nleaves=tuple(len(ls) for ls, _ in flat),
+                    shapes=tuple(shapes), dtypes=tuple(dtypes),
+                    sizes=sizes, offsets=offsets, d_total=sum(sizes))
+
+
+def empty_cuts(p_max: int, n_workers: int, z1_tpl, z2_tpl, z3_tpl
+               ) -> FlatCuts:
+    """All-zero, all-inactive polytope on the templates' device."""
+    spec = spec_from_templates(n_workers, z1_tpl, z2_tpl, z3_tpl)
+    dev = tree_flatten(z1_tpl)[0][0].device
+    return FlatCuts(
+        a=torch.zeros((p_max, spec.d_total), dtype=torch.float32,
+                      device=dev),
+        c=torch.zeros((p_max,), dtype=torch.float32, device=dev),
+        active=torch.zeros((p_max,), dtype=torch.float32, device=dev),
+        age=torch.full((p_max,), -1, dtype=torch.int32, device=dev),
+        spec=spec)
+
+
+def make_cut(h0, grads, point, eps, mu, bound_alpha):
+    """Assemble the linear cut <g, v> <= c from h's value/grads at `point`.
+
+    grads/point are dicts with keys from {"a1","a2","a3","b2","b3"}; missing
+    blocks are zero.  Returns (coeff_dict, c)."""
+    gv0 = 0.0
+    v0_sq = 0.0
+    for k, g in grads.items():
+        gv0 = gv0 + tree_dot(g, point[k])
+        v0_sq = v0_sq + tree_norm_sq(point[k])
+    c = eps + mu * (bound_alpha + v0_sq) - h0 + gv0
+    return grads, c
+
+
+def flatten_coeffs(spec: FlatSpec, coeffs: Dict[str, Any]):
+    """One cut's coefficient dict as a (D,) f32 row in spec column order
+    (missing blocks zero)."""
+    return flatten_point(spec, coeffs.get("a1"), coeffs.get("a2"),
+                         coeffs.get("a3"), coeffs.get("b2"),
+                         coeffs.get("b3"))
+
+
+def _next_slot(active, age):
+    """First inactive slot, else the oldest active one (eviction).
+    Integer scores, as in the reference: an f32 offset loses age bits.
+    `torch.argmin` returns the first minimum, as `jnp.argmin` does."""
+    score = torch.where(active > 0, age,
+                        torch.full_like(age, -(2 ** 30)))
+    return torch.argmin(score)
+
+
+def add_cut(cuts: FlatCuts, coeffs, c, t) -> FlatCuts:
+    """Write the cut into the first inactive slot (or evict the oldest):
+    one row write of the flattened coefficient dict.  The slot stays on
+    the device (no host sync)."""
+    slot = _next_slot(cuts.active, cuts.age).reshape(1)
+    row = flatten_coeffs(cuts.spec, coeffs)
+    c = torch.as_tensor(c, dtype=cuts.c.dtype, device=cuts.c.device)
+    t = torch.as_tensor(t, dtype=torch.int32, device=cuts.age.device)
+    return FlatCuts(
+        a=cuts.a.index_copy(0, slot, row[None, :]),
+        c=cuts.c.index_copy(0, slot, c.reshape(1)),
+        active=cuts.active.index_fill(0, slot, 1.0),
+        age=cuts.age.index_copy(0, slot, t.reshape(1)),
+        spec=cuts.spec)
+
+
+def drop_inactive(cuts: FlatCuts, multipliers, tol: float = 1e-8
+                  ) -> FlatCuts:
+    """Eq. 25: drop cut l when its multiplier is (numerically) zero.
+    A row mask on `active`; coefficients stay (a later add overwrites)."""
+    keep = (torch.abs(multipliers) > tol).to(cuts.active.dtype)
+    return dataclasses.replace(cuts, active=cuts.active * keep)
+
+
+def n_active(cuts: FlatCuts):
+    return torch.sum(cuts.active)
+
+
+def flatten_point(spec: FlatSpec, z1, z2, z3, X2=None, X3=None):
+    """The variable point (z1, z2, z3, {x2_j}, {x3_j}) as a (D,) f32
+    vector in the spec's column order.  A None block is zero."""
+    parts = []
+    dev = None
+    i = 0
+    for b_idx, block in enumerate((z1, z2, z3, X2, X3)):
+        n = spec.nleaves[b_idx]
+        if block is None:
+            parts.extend(spec.sizes[i + k] for k in range(n))
+        else:
+            for leaf in tree_flatten(block)[0]:
+                parts.append(leaf.reshape(-1).float())
+                dev = leaf.device
+        i += n
+    # zero blocks are made on the device of the blocks that were given
+    return torch.cat([
+        torch.zeros((p,), dtype=torch.float32, device=dev)
+        if isinstance(p, int) else p for p in parts])
+
+
+def unflatten_coeff(spec: FlatSpec, vec) -> Tuple:
+    """Inverse of the column layout for a single (D,) vector: the
+    (a1, a2, a3, b2, b3) block trees (point shapes, original dtypes)."""
+    out = []
+    i = 0
+    for b_idx in range(len(_BLOCK_NAMES)):
+        n = spec.nleaves[b_idx]
+        leaves = [
+            vec[spec.offsets[i + k]:spec.offsets[i + k] + spec.sizes[i + k]]
+            .reshape(spec.shapes[i + k]).to(spec.dtypes[i + k])
+            for k in range(n)]
+        out.append(tree_unflatten(spec.tdefs[b_idx], leaves))
+        i += n
+    return tuple(out)
+
+
+def _leaf_range(spec: FlatSpec, b_idx: int) -> Tuple[int, int]:
+    start = sum(spec.nleaves[:b_idx])
+    return start, start + spec.nleaves[b_idx]
+
+
+# ---------------------------------------------------------------------------
+# evaluation / contraction (all read the stored matrix)
+# ---------------------------------------------------------------------------
+
+def eval_cuts_flat(a_flat, v_flat, c, active, impl: str = None):
+    """Per-slot cut values (A @ v - c) * active through `ops.cut_eval`:
+    the CUDA kernels on CUDA tensors (differentiable to any order through
+    the `cut_ad` Functions), the plain version on the CPU or when
+    impl="ref"."""
+    return ops.cut_eval(a_flat, v_flat, c, active, impl=impl)
+
+
+def eval_cuts(cuts: FlatCuts, z1, z2, z3, X2=None, X3=None,
+              impl: str = None):
+    """Per-slot cut values  <a,z> + sum_j <b,x_j> - c  (0 for inactive):
+    the stored matrix against the flattened point."""
+    v = flatten_point(cuts.spec, z1, z2, z3, X2, X3)
+    return eval_cuts_flat(cuts.a, v, cuts.c, cuts.active, impl=impl)
+
+
+def cut_weighted_coeff_flat(spec: FlatSpec, a_flat, weights):
+    """sum_l w_l * coeff_l for every block at once: one (P,)x(P,D)
+    product, unflattened to the (a1, a2, a3, b2, b3) block trees (b-blocks
+    keep the worker axis).  A plain product, as in the reference, where
+    it is left to XLA outside any Pallas kernel."""
+    return unflatten_coeff(spec, weights.float() @ a_flat)
+
+
+def cut_coeff_per_worker(fc: FlatCuts, weights, block: str):
+    """sum_l w[j,l] * b_{l,j}  ->  tree with leading worker axis (N, ...):
+    the per-worker (stale-weight) contraction of Eq. 16, each b-block leaf
+    a (P, N, ...) column slice of `fc.a` against the (N, P) weights."""
+    spec = fc.spec
+    w = (weights * fc.active[None, :]).float()                 # (N, P)
+    b_idx = _BLOCK_NAMES.index(block)
+    lo, hi = _leaf_range(spec, b_idx)
+    p = fc.a.shape[0]
+    leaves = []
+    for i in range(lo, hi):
+        col = fc.a[:, spec.offsets[i]:spec.offsets[i] + spec.sizes[i]]
+        n = spec.shapes[i][0]
+        col = col.reshape(p, n, -1)                            # (P, N, rest)
+        out = torch.einsum("np,pnr->nr", w, col)
+        leaves.append(out.reshape(spec.shapes[i]).to(spec.dtypes[i]))
+    return tree_unflatten(spec.tdefs[b_idx], leaves)

@@ -1,0 +1,129 @@
+"""K-round federated ADMM rollouts: the phi_I / phi_II estimates (Eqs. 5-12).
+
+Counterpart of `repro/core/inner.py`.  Each communication round is one
+Jacobi ADMM sweep:
+  workers  : x' <- x' - eta_x * grad_x L_p          (Eq. 5)
+  master   : z' <- z' - eta_z * grad_z L_p          (Eq. 6, at the *old* x)
+  master   : dual ascent at the new primal point    (Eq. 7)
+Both gradients of a round are taken at the same (old) point, so one
+`torch.autograd.grad` call gives them.  `h_I` / `h_II` (Eqs. 9/12) are
+differentiated w.r.t. the outer variables *through* the rollout, so
+their rollouts build each round's gradient with `create_graph=True`; the
+rollouts that only produce a state (the drop rule and the warm start in
+`cut_refresh`) do not.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import cuts as cuts_lib
+from repro_torch.core import lagrangian as lag
+from repro_torch.core.types import (FlatCuts, Hyper, InnerState2,
+                                    InnerState3, TrilevelProblem)
+from repro_torch.utils.tree import (grad_point, tree_axpy, tree_grad,
+                                    tree_map, tree_norm_sq, tree_sub)
+
+
+def _detach(tree):
+    return tree_map(lambda x: x.detach(), tree)
+
+
+def _dual_step(phi, x_new, z_new, eta):
+    """phi_j + eta (x_j - z) over the stacked workers."""
+    return tree_map(lambda p, x, z: p + eta * (x - z[None]),
+                    phi, x_new, z_new)
+
+
+# ---------------------------------------------------------------------------
+# level 3
+# ---------------------------------------------------------------------------
+
+def rollout3(problem: TrilevelProblem, hyper: Hyper, z1, z2,
+             init: InnerState3, create_graph: bool = False) -> InnerState3:
+    """K rounds of Eq. 5-7; differentiable w.r.t. (z1, z2) when
+    `create_graph`."""
+    st = init
+    with torch.enable_grad():
+        for _ in range(hyper.k_inner):
+            x3 = grad_point(st.x3, keep_graph=create_graph)
+            z3 = grad_point(st.z3, keep_graph=create_graph)
+            out = lag.l_p3(problem, hyper, z1, z2,
+                           InnerState3(x3=x3, z3=z3, phi=st.phi))
+            g_x, g_z = tree_grad(out, (x3, z3), create_graph)
+            x3_new = tree_axpy(-hyper.eta_x, g_x, x3)
+            z3_new = tree_axpy(-hyper.eta_z, g_z, z3)
+            phi_new = _dual_step(st.phi, x3_new, z3_new,
+                                 hyper.eta_dual_inner)
+            st = InnerState3(x3=x3_new, z3=z3_new, phi=phi_new)
+    return st if create_graph else _detach_state(st)
+
+
+def h_i(problem: TrilevelProblem, hyper: Hyper,
+        X3, z3, z1, z2, init: InnerState3):
+    """h_I({x3_j}, z1, z2', z3) = ||[{x3_j}; z3] - phi_I(z1, z2')||^2."""
+    est = rollout3(problem, hyper, z1, z2, _detach_state(init),
+                   create_graph=True)
+    return tree_norm_sq(tree_sub(X3, est.x3)) \
+        + tree_norm_sq(tree_sub(z3, est.z3))
+
+
+# ---------------------------------------------------------------------------
+# level 2
+# ---------------------------------------------------------------------------
+
+def rollout2(problem: TrilevelProblem, hyper: Hyper, z1, z3, X3,
+             cuts_i: FlatCuts, init: InnerState2,
+             create_graph: bool = False) -> InnerState2:
+    """K rounds of Jacobi ADMM on Eq. 11 (with slack/cut multipliers);
+    differentiable w.r.t. (z1, z3, X3) when `create_graph`."""
+    if hyper.use_fused_inner:
+        raise NotImplementedError(
+            "Hyper(use_fused_inner=True) needs the fused level-2 round "
+            "kernel (the reference's kernels/inner_round.py "
+            "fused_cut_round), which is not ported yet: ROADMAP.md "
+            "Queue 2, item 5")
+    zero = torch.zeros_like(cuts_i.active)
+    st = init
+    with torch.enable_grad():
+        for _ in range(hyper.k_inner):
+            x2 = grad_point(st.x2, keep_graph=create_graph)
+            z2 = grad_point(st.z2, keep_graph=create_graph)
+            out = lag.l_p2(problem, hyper, z1, z3, X3, cuts_i,
+                           InnerState2(x2=x2, z2=z2, phi=st.phi, s=st.s,
+                                       gamma=st.gamma))
+            g_x, g_z = tree_grad(out, (x2, z2), create_graph)
+            x2_new = tree_axpy(-hyper.eta_x, g_x, x2)
+            z2_new = tree_axpy(-hyper.eta_z, g_z, z2)
+
+            # the reference evaluates these cut values twice at the same
+            # point (slack step, then dual step); once is the same number
+            cutval = cuts_lib.eval_cuts(cuts_i, z1, z2_new, z3, X3=X3,
+                                        impl=hyper.cut_impl)
+            # slack: projected descent, s >= 0 (only on active cut
+            # slots); torch.maximum splits the gradient at ties as
+            # jnp.maximum does
+            g_s = (st.gamma + hyper.rho2 * (cutval + st.s)) * cuts_i.active
+            s_new = torch.maximum(zero, st.s - hyper.eta_s * g_s) \
+                * cuts_i.active
+            phi_new = _dual_step(st.phi, x2_new, z2_new,
+                                 hyper.eta_dual_inner)
+            gamma_new = torch.maximum(
+                zero, st.gamma + hyper.eta_dual_inner * (cutval + s_new)) \
+                * cuts_i.active
+            st = InnerState2(x2=x2_new, z2=z2_new, phi=phi_new, s=s_new,
+                             gamma=gamma_new)
+    return st if create_graph else _detach_state(st)
+
+
+def h_ii(problem: TrilevelProblem, hyper: Hyper,
+         X2, z2, z1, z3, X3, cuts_i: FlatCuts, init: InnerState2):
+    """h_II({x2_j},{x3_j},z) = ||[{x2_j}; z2] - phi_II(z1, z3, {x3_j})||^2."""
+    est = rollout2(problem, hyper, z1, z3, X3, cuts_i, _detach_state(init),
+                   create_graph=True)
+    return tree_norm_sq(tree_sub(X2, est.x2)) \
+        + tree_norm_sq(tree_sub(z2, est.z2))
+
+
+def _detach_state(st):
+    """`lax.stop_gradient` of an inner state."""
+    return type(st)(**{k: _detach(v) for k, v in vars(st).items()})

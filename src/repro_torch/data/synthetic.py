@@ -1,0 +1,73 @@
+"""Synthetic regression datasets with the exact shapes of the paper's
+benchmarks (Table 1).
+
+A numpy copy of the regression part of `repro/data/synthetic.py` (the
+port does not import `repro`).  The generator is seeded with crc32 of the
+dataset name, so the arrays are identical to the reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Dict, Tuple
+
+import numpy as np
+
+# (n_samples, n_features) of the real datasets used in the paper (Table 1)
+REGRESSION_SPECS: Dict[str, Tuple[int, int]] = {
+    "diabetes": (442, 10),
+    "boston": (506, 13),
+    "red_wine": (1599, 11),
+    "white_wine": (4898, 11),
+}
+
+
+@dataclasses.dataclass
+class RegressionData:
+    name: str
+    x_train: np.ndarray      # (N, n_tr, d) worker-sharded
+    y_train: np.ndarray      # (N, n_tr)
+    x_val: np.ndarray        # (N, n_val, d)
+    y_val: np.ndarray
+    x_test: np.ndarray       # (n_test, d) global
+    y_test: np.ndarray
+
+
+def _ground_truth(x: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """Mildly non-linear teacher: linear + tanh interaction."""
+    lin = x @ w[: x.shape[1]]
+    inter = np.tanh(x @ np.roll(w[: x.shape[1]], 1)) * 0.5
+    return lin + inter
+
+
+def make_regression(name: str, n_workers: int, seed: int = 0,
+                    val_frac: float = 0.2,
+                    test_frac: float = 0.2) -> RegressionData:
+    n, d = REGRESSION_SPECS[name]
+    # crc32, not hash(): Python string hashing is salted per process
+    rng = np.random.default_rng(seed + zlib.crc32(name.encode()) % 65536)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    w = rng.normal(size=(d,)).astype(np.float32) / np.sqrt(d)
+    y = _ground_truth(x, w) + 0.1 * rng.normal(size=(n,))
+    y = ((y - y.mean()) / (y.std() + 1e-8)).astype(np.float32)
+
+    n_test = int(n * test_frac)
+    x_test, y_test = x[:n_test], y[:n_test]
+    x_rem, y_rem = x[n_test:], y[n_test:]
+    n_val = int(len(x_rem) * val_frac)
+
+    # equal worker shards (truncate the remainder for a rectangular array)
+    def shard(a, n_per):
+        per = (len(a) // n_workers)
+        a = a[: per * n_workers].reshape(n_workers, per, *a.shape[1:])
+        return a[:, :n_per]
+
+    n_tr_per = (len(x_rem) - n_val) // n_workers
+    n_val_per = max(1, n_val // n_workers)
+    xv, yv = x_rem[:n_val], y_rem[:n_val]
+    xt, yt = x_rem[n_val:], y_rem[n_val:]
+    return RegressionData(
+        name=name,
+        x_train=shard(xt, n_tr_per), y_train=shard(yt, n_tr_per),
+        x_val=shard(xv, n_val_per), y_val=shard(yv, n_val_per),
+        x_test=x_test, y_test=y_test)
