@@ -7,25 +7,38 @@ Needs one CUDA card, `nvcc` and a checkout of the repository around this
 file; exits non-zero, printing no result, without them.  Phases:
 
 1. Environment: Python, torch, CUDA and nvcc versions, the card's name
-   and power limit, and the time `nvcc` takes to build the kernels from
-   `src/repro_torch/kernels/csrc/cut_kernels.cu`.
-2. Kernels against their plain PyTorch versions on the card, at the main
-   path's shapes and a few ragged ones, in f32 and bf16: forward values,
+   and power limit, and the time `nvcc` takes to build every kernel
+   source under `src/repro_torch/kernels/csrc/` (one nvcc per source,
+   all at once).
+2. Cut kernels against their plain PyTorch versions on the card, at the
+   main paths' shapes (white-wine (8, 242,628), domain adaptation (2,
+   925,590)) and a few ragged ones, in f32 and bf16: forward values,
    first and second derivatives through the MV/VM/OUTER autograd
    Functions, bitwise repeatability of `matvec`, and device times (CUDA
    events around back-to-back calls on operands that together overflow
    the L2 cache) beside the memory-rate bound, the plain version and one
    library call.
-3. The slice: robust HPO at the white-wine width of the paper's Table 1
-   (N=6, S=4, tau=10, one 5x straggler, MLP 11-16-1, K=4, P=8, t_pre=10,
-   t1=400), 120 iterations through `run(RunSpec(engine="scan"))` with the
-   kernels and, for comparison, with every cut contraction forced onto
-   the plain version (after a warm-up, in turns: plain, kernel, kernel,
-   plain); the two histories must agree.
-
-4. Where the slice's time goes: 20 iterations (two refreshes) under
-   `torch.profiler`: the device's busy share and the kernels that fill
-   it.
+3. The fused level-2 round kernel against its plain version at both main
+   shapes, f32 and bf16: values of v_new / cv1 / s_new / gamma_new, a
+   bitwise repeat, first derivatives and grad-of-grad through
+   `FusedRound`, and device times beside the bound, the plain version and
+   the three-call composition torch.mv / g @ A / torch.mv.
+4. White-wine robust HPO (Table 1: N=6, S=4, tau=10, one 5x straggler,
+   MLP 11-16-1, K=4, P=8, t_pre=10, t1=400), 120 iterations through
+   `run(RunSpec(engine="scan"))` in four routes: the plain cut route and
+   the cut kernels (PR 11's main path), and with
+   `Hyper(use_fused_inner=True)` the plain fused round and the fused
+   kernel; after a warm-up, in turns.  Histories, cut counts and the
+   final II-layer cuts, gamma_k and inner level-2 state must agree.
+5. Domain adaptation (§5.2, Table 1's SVHN-pretrain setting: N=6, S=3,
+   two 5x stragglers, tau=15, three LeNet-5s, 24/12 pretrain/finetune
+   digits per worker, K=1, P=2, t_pre=20), 40 iterations with
+   `use_fused_inner=True` through the kernels and through the plain
+   versions; cuDNN held to f32 and deterministic algorithms.
+6. Where the time goes: 20 iterations of white-wine (cut kernels, then
+   the fused kernel; two refreshes each) and of domain adaptation (one
+   refresh) under `torch.profiler`: the device's busy share and the
+   kernels that fill it.
 
 The line before the nvidia-smi line is a JSON object listing every
 ported kernel; the last line is the JSON result.
@@ -49,8 +62,9 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 L2_BYTES = 50 * 2 ** 20
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 
-SHAPES = ((8, 242_628), (8, 57_366), (3, 33), (13, 5_000))
-MAIN_SHAPE = SHAPES[0]      # the white-wine cut space, P = p_max = 8
+MAIN_SHAPE = (8, 242_628)   # the white-wine cut space, P = p_max = 8
+DA_SHAPE = (2, 925_590)     # domain adaptation, N=6: 15 LeNets' columns
+SHAPES = (MAIN_SHAPE, DA_SHAPE, (8, 57_366), (3, 33), (13, 5_000))
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-2, 5e-2)}
 # grad-of-grad entries grow with D (to ~D at the white-wine width), so
 # elementwise f32 agreement of two summation orders is out of reach
@@ -59,10 +73,16 @@ TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-2, 5e-2)}
 # twice the plain route's plus one rounding of the input type
 GOG_FLOOR = {"float32": 1e-6, "bfloat16": 1e-2}
 
-SOURCE = "src/repro_torch/kernels/csrc/cut_kernels.cu"
+SOURCES = {"matvec": "src/repro_torch/kernels/csrc/cut_kernels.cu",
+           "vecmat": "src/repro_torch/kernels/csrc/cut_kernels.cu",
+           "rank1": "src/repro_torch/kernels/csrc/cut_kernels.cu",
+           "fused_round": "src/repro_torch/kernels/csrc/inner_round.cu"}
 REPLACES = {"matvec": "src/repro/kernels/cut_eval.py:60",
             "vecmat": "src/repro/kernels/cut_eval.py:96",
-            "rank1": "src/repro/kernels/cut_eval.py:129"}
+            "rank1": "src/repro/kernels/cut_eval.py:129",
+            "fused_round": "src/repro/kernels/inner_round.py:53"}
+KERNELS = tuple(REPLACES)
+STEP_NAMES = ("eta_z", "eta_s", "eta_dual", "rho2")
 
 
 def fail(msg: str) -> None:
@@ -111,7 +131,8 @@ def environment():
     t0 = time.perf_counter()
     build.load()
     print(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
-          f"({build.library_path().name})", flush=True)
+          f"({build.library_path().name}, "
+          f"{len(build.SOURCES)} sources)", flush=True)
     return smi.splitlines()[0]
 
 
@@ -166,6 +187,15 @@ def work(name, o):
     return p * es + d * es + p * d * 4, p * d
 
 
+def bound_of(nbytes, flops):
+    """(ms, what bounds it): the least time for the work on this card,
+    the larger of the bytes over the memory rate and the f32 operations
+    over the f32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
 def kernel_phase():
     import torch
     from repro_torch.kernels import ops
@@ -201,17 +231,14 @@ def kernel_phase():
                 ms = median_ms(kern, copies)
                 plain_ms = median_ms(plain, copies)
                 lib_ms = median_ms(lib, copies)
-                nbytes, flops = work(name, o)
-                bound = max(nbytes / HBM_BYTES_PER_S,
-                            flops / F32_FLOP_PER_S) * 1e3
-                bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
-                    flops / F32_FLOP_PER_S else "operations"
+                bound, bound_by = bound_of(*work(name, o))
                 print(f"{name:7s} {dname:8s} {p:3d} {d:7d}  {err:.3e}  "
                       f"{ms:.4f}  {plain_ms:.4f}  {lib_ms:.4f}  "
                       f"{bound:.4f}", flush=True)
                 if dtype == torch.float32 and (p, d) == MAIN_SHAPE:
                     rows[name] = {
-                        "name": name, "route": "cuda", "source": SOURCE,
+                        "name": name, "route": "cuda",
+                        "source": SOURCES[name],
                         "replaces": REPLACES[name], "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": lib_ms}
@@ -233,7 +260,10 @@ def grads_check(o, dname, ops):
     import torch
     p, d = o["a"].shape
     c = o["g"].float()
+    # row 0 always active, so the second derivatives are not all zero
+    # (at P = 2 every row may draw inactive)
     act = (o["x"].float() > -0.5).float()
+    act[0] = 1.0
     w = o["y"].float()[:p] if d >= p else torch.ones(p, device="cuda")
 
     def derivs(impl, dtype=None):
@@ -278,36 +308,232 @@ def grads_check(o, dname, ops):
 # phase 3
 # ---------------------------------------------------------------------------
 
-N_ITERATIONS = 120
+FUSED_STEPS = dict(eta_z=0.05, eta_s=0.05, eta_dual=0.05, rho2=1.0)
+ROUND_ARGS = ("a", "v", "g_other", "mask", "c", "active", "s", "gamma")
 
 
-def slice_run(hyper, task, cfg, n_iterations=N_ITERATIONS):
-    """One white-wine run: (result, seconds, kernel launches in it)."""
+def round_operands(p, d, dtype, seed):
+    """One round's operands: A scaled so A v is O(1), a third of the
+    columns masked out, about a third of the cuts inactive (row 0
+    active)."""
     import torch
-    from repro_torch.core import RunSpec, run
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    active = (rnd(p) > -0.4).float()
+    active[0] = 1.0      # at P = 2 every row may draw inactive
+    return {"a": rnd(p, d, scale=d ** -0.5).to(dtype), "v": rnd(d),
+            "g_other": rnd(d),
+            "mask": (torch.arange(d, device="cuda") % 3 > 0).float(),
+            "c": rnd(p), "active": active,
+            "s": rnd(p).abs(), "gamma": rnd(p).abs()}
+
+
+def round_work(o):
+    """(bytes, flops) of one round: A and the three D-vectors read once,
+    v_new written once, the (P,) rows in and out; three passes of 2PD
+    operations over A plus the D-wide update."""
+    p, d = o["a"].shape
+    nbytes = p * d * o["a"].element_size() + 3 * d * 4 + d * 4 \
+        + 4 * p * 4 + 3 * p * 4
+    return nbytes, 6 * p * d + 4 * d
+
+
+def fused_phase(rows):
+    import torch
+    from repro_torch.kernels import inner_round as R
+    from repro_torch.kernels import ops
+
+    print("fused   dtype     P      D   max_abs_err(v_new/cv1/s/gamma)  "
+          "ms  plain_ms  3call_ms  bound_ms")
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        rtol, atol = TOL[dname]
+        for i, (p, d) in enumerate((MAIN_SHAPE, DA_SHAPE, (3, 1_025))):
+            o = round_operands(p, d, dtype, seed=200 + i)
+            n_copies = min(16, -(-2 * L2_BYTES // round_work(o)[0]))
+            copies = [round_operands(p, d, dtype, seed=300 + k)
+                      for k in range(n_copies)]
+
+            def kern(o):
+                return R.fused_cut_round(*(o[k] for k in ROUND_ARGS),
+                                         **FUSED_STEPS)
+
+            def plain(o):
+                return R.fused_cut_round_ref(*(o[k] for k in ROUND_ARGS),
+                                             **FUSED_STEPS)
+
+            def three_calls(o):
+                # no single library call computes the round: the three
+                # contractions it chains, each one PyTorch call (f32 only:
+                # torch.mv takes no mixed operand types)
+                a = o["a"]
+                return torch.mv(a, torch.mv(a, o["v"]) @ a)
+
+            got, want = kern(o), plain(o)
+            try:
+                errs = [close(x, y, rtol, atol) for x, y in zip(got, want)]
+            except AssertionError as e:
+                fail(f"fused_round {dname} ({p}, {d}) vs plain: {e}")
+            again = kern(o)
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"fused_round {dname} ({p}, {d}) not bitwise repeatable")
+            ms = median_ms(kern, copies)
+            plain_ms = median_ms(plain, copies)
+            lib_ms = median_ms(three_calls, copies) \
+                if dtype == torch.float32 else float("nan")
+            bound, bound_by = bound_of(*round_work(o))
+            print(f"fused   {dname:8s} {p:3d} {d:7d}  "
+                  + "/".join(f"{e:.2e}" for e in errs)
+                  + f"  {ms:.4f}  {plain_ms:.4f}  {lib_ms:.4f}  "
+                  f"{bound:.4f}  (bitwise repeatable: yes)", flush=True)
+            if dtype == torch.float32 and (p, d) == MAIN_SHAPE:
+                rows["fused_round"] = {
+                    "name": "fused_round", "route": "cuda",
+                    "source": SOURCES["fused_round"],
+                    "replaces": REPLACES["fused_round"],
+                    "max_abs_err": max(errs), "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": bound_by, "library_ms": None}
+                print(f"  three-call composition torch.mv / u @ A / "
+                      f"torch.mv (no single library call computes the "
+                      f"round): {lib_ms:.4f} ms")
+            if (p, d) != (3, 1_025):
+                round_grads_check(o, dname, R, ops)
+
+
+def round_grads_check(o, dname, R, ops):
+    """FusedRound's first derivatives w.r.t. (A, v, s, gamma) against
+    plain-torch autograd of the plain version, and its grad-of-grad
+    w.r.t. (A, v) against a float64 computation of the same round."""
+    import torch
+    p, d = o["a"].shape
+    wrt = ("a", "v", "s", "gamma")
+    steps = tuple(FUSED_STEPS[k] for k in STEP_NAMES)
+
+    def derivs(impl, dtype=None):
+        x = {k: o[k].detach().clone().to(dtype or o[k].dtype)
+             .requires_grad_(k in wrt) for k in ROUND_ARGS}
+        args = [x[k] for k in ROUND_ARGS]
+        if impl is None:
+            outs = R.fused_round_math(lambda a, v: a @ v,
+                                      lambda g, a: g @ a, *args, *steps)
+        else:
+            outs = ops.fused_cut_round(*args, impl=impl, **FUSED_STEPS)
+        loss = sum(torch.sum(t.to(outs[0].dtype) ** 2) for t in outs)
+        g = torch.autograd.grad(loss, [x[k] for k in wrt],
+                                create_graph=True)
+        inner = sum(torch.sum(t.to(outs[0].dtype) ** 2) for t in g)
+        gg = torch.autograd.grad(inner, [x["a"], x["v"]])
+        return g, gg
+
+    rtol, atol = TOL[dname]
+    (g_k, gg_k), (g_p, gg_p) = derivs("kernel"), derivs("ref")
+    truth = derivs(None, dtype=torch.float64)[1]
+    try:
+        errs = [close(x, y, rtol, atol) for x, y in zip(g_k, g_p)]
+    except AssertionError as e:
+        fail(f"FusedRound first derivatives {dname} ({p}, {d}): {e}")
+    gog = []
+    for k_, p_, t, name in zip(gg_k, gg_p, truth, ("dda", "ddv")):
+        t = t.detach()
+        scale = float(t.abs().max())
+        e_k = float((k_.double() - t).abs().max()) / scale
+        e_p = float((p_.double() - t).abs().max()) / scale
+        check(e_k <= 2 * e_p + GOG_FLOOR[dname],
+              f"FusedRound grad-of-grad {name} {dname} ({p}, {d}): error "
+              f"{e_k:.2e} of max |entry| vs the plain route's {e_p:.2e}")
+        gog.append((e_k, e_p))
+    print(f"FusedRound grads {dname} ({p}, {d}): max abs err vs plain "
+          + " ".join(f"d{k} {e:.2e}" for k, e in zip(wrt, errs))
+          + f" | grad-of-grad err vs float64 (of max |entry|) kernel/plain "
+          f"dda {gog[0][0]:.1e}/{gog[0][1]:.1e} ddv {gog[1][0]:.1e}/"
+          f"{gog[1][1]:.1e}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: the main paths
+# ---------------------------------------------------------------------------
+
+N_ITERATIONS = 120
+DA_ITERATIONS = 40
+# final-state agreement between routes, relative to the tensor's largest
+# entry: the routes sum in other orders, so only the cut rows and inner
+# states that the cut values move may differ, by f32 rounding carried
+# through 120 iterations
+STATE_RTOL = 1e-4
+
+
+def timed_run(spec):
+    """(result, seconds, kernel launches) of one run, counts set to 0
+    just before it."""
+    import torch
+    from repro_torch.core import run
     from repro_torch.kernels import cut_eval as K
 
-    def metrics(state):
-        w = {k: v.mean(0) for k, v in state.X3.items()}
-        return {"mse_clean": task.test_mse(w, 0.0),
-                "mse_noisy": task.test_mse(w, 0.3, seed=0)}
-
-    spec = RunSpec(problem=task.problem, hyper=hyper, scheduler=cfg,
-                   n_iterations=n_iterations, metrics_every=10,
-                   metrics_fn=metrics, engine="scan")
     torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.perf_counter()
     res = run(spec)
     torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    return res, elapsed, dict(K.LAUNCHES)
+    return res, time.perf_counter() - t0, dict(K.LAUNCHES)
+
+
+def in_turns(specs, order):
+    """Run `specs[name]` for each name of `order`; keep each route's
+    first result and launches and every time.  `order` is symmetric, so
+    each route sees the same mean position."""
+    first, times = {}, {name: [] for name in specs}
+    for name in order:
+        res, secs, launches = timed_run(specs[name])
+        times[name].append(secs)
+        first.setdefault(name, (res, launches))
+    return first, times
+
+
+def final_state_diffs(st, ref):
+    """{name: max |diff| / max |entry|} of the final II-layer cuts,
+    gamma_k and level-2 inner state of two runs."""
+    from repro_torch.utils.tree import tree_leaves
+    pairs = {"cuts_ii.a": (st.cuts_ii.a, ref.cuts_ii.a),
+             "cuts_ii.c": (st.cuts_ii.c, ref.cuts_ii.c),
+             "gamma_k": (st.gamma_k, ref.gamma_k)}
+    for k in ("x2", "z2", "phi", "s", "gamma"):
+        pairs[f"inner2.{k}"] = (getattr(st.inner2, k),
+                                getattr(ref.inner2, k))
+    out = {}
+    for name, (x, y) in pairs.items():
+        num = max(float((a - b).abs().max())
+                  for a, b in zip(tree_leaves(x), tree_leaves(y)))
+        den = max(float(b.abs().max()) for b in tree_leaves(y))
+        out[name] = num / den if den > 0 else num
+    return out
+
+
+def compare_routes(label, h, hr, keys, rtol):
+    for k in keys:
+        rel = float(np.max(np.abs(h[k] - hr[k]) / np.abs(hr[k])))
+        print(f"  {label} {k}: max rel diff {rel:.3e}")
+        check(bool(np.all(np.isfinite(h[k]))), f"{label} {k} not finite")
+        check(bool(np.allclose(h[k], hr[k], rtol=rtol, atol=0.0)),
+              f"{label} {k} beyond rtol {rtol}")
+    for k in ("n_cuts_i", "n_cuts_ii"):
+        check(list(h[k]) == list(hr[k]), f"{label} {k} differs")
+
+
+def print_multipliers(label, st):
+    print(f"  {label} final multipliers: max lam {float(st.lam.max()):.3e},"
+          f" max gamma_k {float(st.gamma_k.max()):.3e}, max inner2.s "
+          f"{float(st.inner2.s.max()):.3e}, max inner2.gamma "
+          f"{float(st.inner2.gamma.max()):.3e}")
 
 
 def slice_phase(rows):
     from repro_torch.apps.robust_hpo import (default_hyper,
                                              make_robust_hpo_problem)
-    from repro_torch.core import StragglerConfig
+    from repro_torch.core import RunSpec, StragglerConfig
 
     n, s, tau = 6, 4, 10
     task = make_robust_hpo_problem("white_wine", n_workers=n, seed=0,
@@ -316,68 +542,172 @@ def slice_phase(rows):
     cfg = StragglerConfig(n_workers=n, s_active=s, tau=tau, n_stragglers=1,
                           straggler_slowdown=5.0, seed=0)
 
-    plain = dataclasses.replace(hyper, cut_impl="ref")
-    # the first use of each kernel loads its module: keep that out of the
-    # timed runs, which then go in turns (plain, kernel, kernel, plain);
-    # the first kernel run is the main path whose launches are counted
-    for hy in (hyper, plain):
-        slice_run(hy, task, cfg, n_iterations=20)
-    ref, ref_elapsed, ref_launches = slice_run(plain, task, cfg)
-    res, elapsed, launches = slice_run(hyper, task, cfg)
-    elapsed_2 = slice_run(hyper, task, cfg)[1]
-    ref_elapsed_2 = slice_run(plain, task, cfg)[1]
+    def metrics(state):
+        w = {k: v.mean(0) for k, v in state.X3.items()}
+        return {"mse_clean": task.test_mse(w, 0.0),
+                "mse_noisy": task.test_mse(w, 0.3, seed=0)}
+
+    fused = dataclasses.replace(hyper, use_fused_inner=True)
+    hypers = {"plain": dataclasses.replace(hyper, cut_impl="ref"),
+              "kernel": hyper,
+              "fused_plain": dataclasses.replace(fused, cut_impl="ref"),
+              "fused": fused}
+    specs = {name: RunSpec(problem=task.problem, hyper=hy, scheduler=cfg,
+                           n_iterations=N_ITERATIONS, metrics_every=10,
+                           metrics_fn=metrics, engine="scan")
+             for name, hy in hypers.items()}
+    # the first use of each route loads its modules and kernels: keep
+    # that out of the timed runs, which then go in turns
+    for spec in specs.values():
+        timed_run(dataclasses.replace(spec, n_iterations=20))
+    order = ("plain", "fused_plain", "kernel", "fused", "fused", "kernel",
+             "fused_plain", "plain")
+    first, times = in_turns(specs, order)
+    ms = {name: [x / N_ITERATIONS * 1e3 for x in t]
+          for name, t in times.items()}
+    print("white-wine ms/iteration in turns (" + ", ".join(order) + "): "
+          + ", ".join(f"{ms[name][order[:i].count(name)]:.3f}"
+                      for i, name in enumerate(order)))
+
+    res, launches = first["kernel"]
     h = res.history
     a_shape = tuple(res.state.cuts_ii.a.shape)
-    print(f"white-wine slice (kernel route): cut matrix {a_shape}, "
-          f"{elapsed:.2f} s for {N_ITERATIONS} iterations", flush=True)
     check(a_shape == MAIN_SHAPE, f"cut matrix {a_shape} != {MAIN_SHAPE}")
+    print(f"white-wine slice (cut kernels): cut matrix {a_shape}")
     for k in ("t", "gap_sq", "mse_clean", "mse_noisy", "n_cuts_i",
               "n_cuts_ii"):
         print(f"  {k:9s} " + " ".join(f"{x:.6g}" for x in h[k]))
-    for k in ("gap_sq", "mse_clean", "mse_noisy", "n_cuts_i", "n_cuts_ii"):
-        check(bool(np.all(np.isfinite(h[k]))), f"{k} not finite")
     check(h["gap_sq"][-1] < h["gap_sq"][0], "gap_sq did not decrease")
     check(h["mse_noisy"][-1] < h["mse_noisy"][0],
           "noisy test MSE did not decrease")
-    print("  launches: " + ", ".join(
-        f"{k} {launches.get(k, 0)} ({launches.get(k, 0) / N_ITERATIONS:.2f}"
-        "/iteration)" for k in rows))
-    st = res.state
-    print(f"  final multipliers: max lam {float(st.lam.max()):.3e}, max "
-          f"gamma_k {float(st.gamma_k.max()):.3e}, max inner2.s "
-          f"{float(st.inner2.s.max()):.3e}")
+    for name in hypers:
+        got = first[name][1]
+        print(f"  launches, {name} route: " + ", ".join(
+            f"{k} {got.get(k, 0)} ({got.get(k, 0) / N_ITERATIONS:.2f}"
+            "/iteration)" for k in KERNELS))
     for k in ("matvec", "vecmat"):
         check(launches.get(k, 0) > 0, f"{k} never launched on the main path")
-    for k in rows:
-        rows[k]["launches"] = int(launches.get(k, 0))
+        rows[k]["launches"] = int(launches[k])
+    rows["rank1"]["launches"] = int(launches.get("rank1", 0))
+    fused_launches = first["fused"][1]
+    check(fused_launches.get("fused_round", 0) > 0,
+          "fused_round never launched on the fused route")
+    rows["fused_round"]["launches"] = int(fused_launches["fused_round"])
+    check(launches.get("fused_round", 0) == 0,
+          "the unfused kernel route launched the fused round")
+    for name in ("plain", "fused_plain"):
+        check(sum(first[name][1].values()) == 0,
+              f"the {name} route launched kernels: {first[name][1]}")
 
-    check(sum(ref_launches.values()) == 0,
-          f"the plain route launched kernels: {ref_launches}")
-    hr = ref.history
-    ms = [x / N_ITERATIONS * 1e3 for x in (ref_elapsed, elapsed, elapsed_2,
-                                            ref_elapsed_2)]
-    print("white-wine slice ms/iteration in turns (plain, kernel, kernel, "
-          "plain): " + ", ".join(f"{x:.3f}" for x in ms))
-    for k in ("gap_sq", "mse_clean", "mse_noisy"):
-        rel = float(np.max(np.abs(h[k] - hr[k]) / np.abs(hr[k])))
-        print(f"  kernel vs plain route {k}: max rel diff {rel:.3e}")
-        check(bool(np.allclose(h[k], hr[k], rtol=1e-4, atol=0.0)),
-              f"{k} kernel vs plain route beyond rtol 1e-4")
-    for k in ("n_cuts_i", "n_cuts_ii"):
-        check(list(h[k]) == list(hr[k]), f"{k} differs between routes")
-    return (ms[1] + ms[2]) / 2, task, hyper, cfg
+    keys = ("gap_sq", "mse_clean", "mse_noisy")
+    ref_state = first["plain"][0].state
+    for name in ("kernel", "fused_plain", "fused"):
+        compare_routes(f"{name} vs plain", first[name][0].history,
+                       first["plain"][0].history, keys, 1e-4)
+        diffs = final_state_diffs(first[name][0].state, ref_state)
+        print(f"  {name} vs plain final state (max |diff| / max |entry|): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
+        for k, v in diffs.items():
+            check(v <= STATE_RTOL, f"white-wine {name} vs plain final {k}: "
+                  f"{v:.2e} of the largest entry > {STATE_RTOL}")
+    for name in hypers:
+        print_multipliers(f"white-wine {name}", first[name][0].state)
+    return {name: float(np.mean(v)) for name, v in ms.items()}, specs
 
 
-def profile_phase(task, hyper, cfg):
-    """Device time of 20 slice iterations (two refreshes) by kernel, and
-    the device's busy share of the wall time, under torch.profiler."""
+def da_phase(rows):
+    import torch
+    from repro_torch.apps.domain_adaptation import (
+        default_hyper, make_domain_adaptation_problem)
+    from repro_torch.core import RunSpec, StragglerConfig
+
+    # cuDNN's f32 convolutions default to TF32 and may pick
+    # nondeterministic algorithms: either would make the routes differ
+    # for reasons that have nothing to do with the cut kernels
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    print(f"cudnn: allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"deterministic={torch.backends.cudnn.deterministic} "
+          f"benchmark={torch.backends.cudnn.benchmark}")
+
+    n, s, stragglers, tau = 6, 3, 2, 15     # Table 1, SVHN pretrain
+    task = make_domain_adaptation_problem(
+        n, pretrain_domain="svhn", n_pretrain_per=24, n_finetune_per=12,
+        seed=0, device="cuda")
+    hyper = default_hyper(n, s, tau, t_pre=20, k_inner=1, p_max=2,
+                          use_fused_inner=True)
+    cfg = StragglerConfig(n_workers=n, s_active=s, tau=tau,
+                          n_stragglers=stragglers, straggler_slowdown=5.0,
+                          seed=0)
+
+    def metrics(state):
+        return task.test_metrics({k: v.mean(0) for k, v in state.X2.items()})
+
+    specs = {name: RunSpec(problem=task.problem, hyper=hy, scheduler=cfg,
+                           n_iterations=DA_ITERATIONS, metrics_every=5,
+                           metrics_fn=metrics, engine="scan")
+             for name, hy in (("fused", hyper), ("fused_plain",
+                              dataclasses.replace(hyper, cut_impl="ref")))}
+    # the warm-up reaches the first refresh (t_pre = 20)
+    for spec in specs.values():
+        timed_run(dataclasses.replace(spec, n_iterations=20))
+    order = ("fused_plain", "fused", "fused", "fused_plain")
+    first, times = in_turns(specs, order)
+    ms = {name: [x / DA_ITERATIONS * 1e3 for x in t]
+          for name, t in times.items()}
+    print("domain adaptation ms/iteration in turns (" + ", ".join(order)
+          + "): " + ", ".join(f"{ms[name][order[:i].count(name)]:.3f}"
+                              for i, name in enumerate(order)))
+    res, launches = first["fused"]
+    h = res.history
+    a_shape = tuple(res.state.cuts_ii.a.shape)
+    print(f"domain adaptation (fused kernel route): cut matrix {a_shape}")
+    check(a_shape == DA_SHAPE, f"cut matrix {a_shape} != {DA_SHAPE}")
+    for k in ("t", "gap_sq", "test_acc", "test_loss", "n_cuts_i",
+              "n_cuts_ii"):
+        print(f"  {k:9s} " + " ".join(f"{x:.6g}" for x in h[k]))
+    check(h["test_loss"][-1] < h["test_loss"][0],
+          "domain adaptation test_loss did not decrease")
+    for name in specs:
+        got = first[name][1]
+        print(f"  launches, {name} route: " + ", ".join(
+            f"{k} {got.get(k, 0)} ({got.get(k, 0) / DA_ITERATIONS:.2f}"
+            "/iteration)" for k in KERNELS))
+    for k in ("matvec", "fused_round"):
+        check(launches.get(k, 0) > 0,
+              f"{k} never launched on the domain-adaptation path")
+    check(sum(first["fused_plain"][1].values()) == 0,
+          "the plain domain-adaptation route launched kernels")
+    compare_routes("fused vs plain", h, first["fused_plain"][0].history,
+                   ("gap_sq", "test_loss", "test_acc"), 1e-4)
+    diffs = final_state_diffs(res.state, first["fused_plain"][0].state)
+    print("  fused vs plain final state (max |diff| / max |entry|): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
+    for k, v in diffs.items():
+        check(v <= STATE_RTOL, f"domain adaptation fused vs plain final "
+              f"{k}: {v:.2e} of the largest entry > {STATE_RTOL}")
+    for name in specs:
+        print_multipliers(f"domain adaptation {name}", first[name][0].state)
+    return {name: float(np.mean(v)) for name, v in ms.items()}, launches, \
+        specs["fused"]
+
+
+# the port's kernels by the names the profiler gives them
+OUR_KERNELS = ("matvec", "vecmat", "rank1", "round_mv", "round_update",
+               "round_finish")
+
+
+def profile_phase(label, spec):
+    """Device time of 20 iterations of `spec` by kernel, and the device's
+    busy share of the wall time, under torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import RunSpec, run
+    from repro_torch.core import run
 
-    spec = RunSpec(problem=task.problem, hyper=hyper, scheduler=cfg,
-                   n_iterations=20, metrics_every=10)
+    spec = dataclasses.replace(spec, n_iterations=20, metrics_every=10,
+                               metrics_fn=None)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -392,14 +722,13 @@ def profile_phase(task, hyper, cfg):
     busy_us = sum(us for _, us in by_name.values())
     check(busy_us > 0, "the profiler saw no device time")
     ours = sum(us for name, (_, us) in by_name.items()
-               if "matvec" in name or "vecmat" in name
-               or "rank1" in name)
+               if any(k in name for k in OUR_KERNELS))
     n_kernels = sum(n for n, _ in by_name.values())
-    print(f"profile (20 iterations, profiler on): wall {wall_us / 1e3:.1f}"
-          f" ms, device busy {busy_us / 1e3:.2f} ms "
-          f"({100 * busy_us / wall_us:.1f}%), {n_kernels} kernels, cut "
-          f"kernels {ours / 1e3:.3f} ms ({100 * ours / busy_us:.1f}% of "
-          "busy)")
+    print(f"profile, {label} (20 iterations, profiler on): wall "
+          f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.2f} ms "
+          f"({100 * busy_us / wall_us:.1f}%), {n_kernels} kernels, the "
+          f"port's kernels {ours / 1e3:.3f} ms ({100 * ours / busy_us:.1f}%"
+          " of busy)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     for name, (n, us) in top:
         print(f"  {us / 1e3:8.3f} ms  {n:6d}x  {name[:90]}")
@@ -416,12 +745,21 @@ def main() -> None:
              "CUDA card")
     smi = environment()
     rows = kernel_phase()
-    ms_per_it, task, hyper, cfg = slice_phase(rows)
-    profile_phase(task, hyper, cfg)
-    print(f"slice ms/iteration (kernel route, mean of two runs): "
-          f"{ms_per_it:.3f}")
-    print(json.dumps({"kernels": [rows[k] for k in
-                                  ("matvec", "vecmat", "rank1")]}))
+    fused_phase(rows)
+    ww_ms, ww_specs = slice_phase(rows)
+    da_ms, da_launches, da_spec = da_phase(rows)
+    profile_phase("white-wine, cut kernels (two refreshes)",
+                  ww_specs["kernel"])
+    profile_phase("white-wine, fused kernel (two refreshes)",
+                  ww_specs["fused"])
+    profile_phase("domain adaptation, fused kernel (one refresh)", da_spec)
+    print("ms/iteration, mean of two runs per route: white-wine "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ww_ms.items())
+          + "; domain adaptation "
+          + ", ".join(f"{k} {v:.3f}" for k, v in da_ms.items()))
+    print("domain-adaptation launches (fused route): " + ", ".join(
+        f"{k} {da_launches.get(k, 0)}" for k in KERNELS))
+    print(json.dumps({"kernels": [rows[k] for k in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

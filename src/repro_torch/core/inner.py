@@ -20,6 +20,7 @@ from repro_torch.core import cuts as cuts_lib
 from repro_torch.core import lagrangian as lag
 from repro_torch.core.types import (FlatCuts, Hyper, InnerState2,
                                     InnerState3, TrilevelProblem)
+from repro_torch.kernels import ops
 from repro_torch.utils.tree import (grad_point, tree_axpy, tree_grad,
                                     tree_map, tree_norm_sq, tree_sub)
 
@@ -71,17 +72,58 @@ def h_i(problem: TrilevelProblem, hyper: Hyper,
 # level 2
 # ---------------------------------------------------------------------------
 
+def _rollout2_fused(problem: TrilevelProblem, hyper: Hyper, z1, z3, X3,
+                    cuts_i: FlatCuts, init: InnerState2,
+                    create_graph: bool) -> InnerState2:
+    """The `hyper.use_fused_inner` round body: the cut algebra of a
+    round (weights, masked z2 descent, re-evaluation, slack and gamma
+    steps) in one `ops.fused_cut_round`, which reads A twice where the
+    plain body reads it three times.  The cut-free part (per-worker f2,
+    consensus terms, phi ascent) stays in `lag.l_p2_base`; its x2/z2
+    gradients equal the full `l_p2` ones minus the cut term the fused
+    op applies.  Differentiable to any order through `ops.FusedRound`.
+    """
+    spec = cuts_i.spec
+    # 1 on z2's columns of the flattened point, 0 elsewhere (z1, z3 and
+    # X3 do not move within the rollout)
+    mask = cuts_lib.flatten_point(
+        spec, None, tree_map(torch.ones_like, init.z2), None, None, None)
+    st = init
+    with torch.enable_grad():
+        for _ in range(hyper.k_inner):
+            x2 = grad_point(st.x2, keep_graph=create_graph)
+            z2 = grad_point(st.z2, keep_graph=create_graph)
+            out = lag.l_p2_base(problem, hyper, z1, z3, X3,
+                                InnerState2(x2=x2, z2=z2, phi=st.phi,
+                                            s=st.s, gamma=st.gamma))
+            g_x, g_z = tree_grad(out, (x2, z2), create_graph)
+            x2_new = tree_axpy(-hyper.eta_x, g_x, x2)
+            v_new, _cv1, s_new, gamma_new = ops.fused_cut_round(
+                cuts_i.a, cuts_lib.flatten_point(spec, z1, st.z2, z3, None,
+                                                 X3),
+                cuts_lib.flatten_point(spec, None, g_z, None, None, None),
+                mask, cuts_i.c, cuts_i.active, st.s, st.gamma,
+                eta_z=hyper.eta_z, eta_s=hyper.eta_s,
+                eta_dual=hyper.eta_dual_inner, rho2=hyper.rho2,
+                impl=hyper.cut_impl)
+            z2_new = cuts_lib.unflatten_coeff(spec, v_new)[1]
+            phi_new = _dual_step(st.phi, x2_new, z2_new,
+                                 hyper.eta_dual_inner)
+            st = InnerState2(x2=x2_new, z2=z2_new, phi=phi_new, s=s_new,
+                             gamma=gamma_new)
+    return st if create_graph else _detach_state(st)
+
+
 def rollout2(problem: TrilevelProblem, hyper: Hyper, z1, z3, X3,
              cuts_i: FlatCuts, init: InnerState2,
              create_graph: bool = False) -> InnerState2:
     """K rounds of Jacobi ADMM on Eq. 11 (with slack/cut multipliers);
-    differentiable w.r.t. (z1, z3, X3) when `create_graph`."""
+    differentiable w.r.t. (z1, z3, X3) when `create_graph`.  With
+    `hyper.use_fused_inner` each round's cut algebra runs in the fused
+    round (`_rollout2_fused`); the body below is its parity oracle."""
     if hyper.use_fused_inner:
-        raise NotImplementedError(
-            "Hyper(use_fused_inner=True) needs the fused level-2 round "
-            "kernel (the reference's kernels/inner_round.py "
-            "fused_cut_round), which is not ported yet: ROADMAP.md "
-            "Queue 2, item 5")
+        return _rollout2_fused(problem, hyper, z1, z3, X3, cuts_i, init,
+                               create_graph)
     zero = torch.zeros_like(cuts_i.active)
     st = init
     with torch.enable_grad():

@@ -62,12 +62,13 @@ class Hyper:
     c1_floor: float = 1e-3
     c2_floor: float = 1e-3
     d1: int = 1                 # dim of x1 (for the theta projection radius)
-    # the fused level-2 round kernel (the reference's
-    # kernels/inner_round.py); not ported yet, so True raises
+    # run each level-2 inner round's cut algebra in the fused round
+    # kernel (`kernels.ops.fused_cut_round`)
     use_fused_inner: bool = False
-    # route of every cut contraction (`kernels.ops.cut_eval`'s impl):
-    # None = the CUDA kernels on CUDA tensors, the plain version on the
-    # CPU; "ref" forces the plain version (the on-card oracle run)
+    # route of every cut contraction and fused round (the impl of
+    # `kernels.ops.cut_eval` / `fused_cut_round`): None = the CUDA
+    # kernels on CUDA tensors, the plain version on the CPU; "ref"
+    # forces the plain version (the on-card oracle run)
     cut_impl: Optional[str] = None
 
     def __post_init__(self):

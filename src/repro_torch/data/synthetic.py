@@ -1,9 +1,11 @@
-"""Synthetic regression datasets with the exact shapes of the paper's
-benchmarks (Table 1).
+"""Synthetic datasets with the exact shapes of the paper's benchmarks
+(Table 1).
 
-A numpy copy of the regression part of `repro/data/synthetic.py` (the
-port does not import `repro`).  The generator is seeded with crc32 of the
-dataset name, so the arrays are identical to the reference's.
+A numpy copy of the regression and digits parts of
+`repro/data/synthetic.py` (the port does not import `repro`).  The
+regression generator is seeded with crc32 of the dataset name and the
+digits generator with the seed, so the arrays are identical to the
+reference's.
 """
 from __future__ import annotations
 
@@ -70,4 +72,57 @@ def make_regression(name: str, n_workers: int, seed: int = 0,
         name=name,
         x_train=shard(xt, n_tr_per), y_train=shard(yt, n_tr_per),
         x_val=shard(xv, n_val_per), y_val=shard(yv, n_val_per),
+        x_test=x_test, y_test=y_test)
+
+
+@dataclasses.dataclass
+class DigitsData:
+    """Two-domain digit recognition stand-in (MNIST-like / SVHN-like)."""
+    x_pretrain: np.ndarray   # (N, n_pt, 32, 32, 1)
+    y_pretrain: np.ndarray   # (N, n_pt)
+    x_finetune: np.ndarray   # (N, n_ft, 32, 32, 1)
+    y_finetune: np.ndarray
+    x_test: np.ndarray       # (n_test, 32, 32, 1) finetune-domain test
+    y_test: np.ndarray
+
+
+def _render_digit(rng, label: int, domain: str) -> np.ndarray:
+    """Procedural 32x32 'digit': a class-specific frequency pattern.
+
+    The two domains differ by contrast, background clutter and blur, so
+    pretraining on one transfers imperfectly to the other: the setting
+    the reweighting network of Eq. 32 exploits."""
+    yy, xx = np.mgrid[0:32, 0:32].astype(np.float32) / 32.0
+    f1, f2 = 1 + label % 5, 1 + label // 5
+    img = (np.sin(2 * np.pi * f1 * xx + label)
+           * np.cos(2 * np.pi * f2 * yy - label))
+    if domain == "svhn":
+        img = 0.6 * img + 0.8 * rng.normal(size=img.shape)  # clutter
+        img = img + 0.3 * np.sin(2 * np.pi * 3 * (xx + yy))  # color cast
+    else:
+        img = img + 0.15 * rng.normal(size=img.shape)
+    img = np.clip(img, -2, 2) / 2.0
+    return img[..., None].astype(np.float32)
+
+
+def make_digits(n_workers: int, n_pretrain_per: int = 64,
+                n_finetune_per: int = 32, n_test: int = 256,
+                pretrain_domain: str = "svhn",
+                seed: int = 0) -> DigitsData:
+    rng = np.random.default_rng(seed)
+    ft_domain = "mnist" if pretrain_domain == "svhn" else "svhn"
+
+    def batch(n, domain):
+        ys = rng.integers(0, 10, size=n)
+        xs = np.stack([_render_digit(rng, int(y), domain) for y in ys])
+        return xs.astype(np.float32), ys.astype(np.int32)
+
+    xpt, ypt = zip(*[batch(n_pretrain_per, pretrain_domain)
+                     for _ in range(n_workers)])
+    xft, yft = zip(*[batch(n_finetune_per, ft_domain)
+                     for _ in range(n_workers)])
+    x_test, y_test = batch(n_test, ft_domain)
+    return DigitsData(
+        x_pretrain=np.stack(xpt), y_pretrain=np.stack(ypt),
+        x_finetune=np.stack(xft), y_finetune=np.stack(yft),
         x_test=x_test, y_test=y_test)

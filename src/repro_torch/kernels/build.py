@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-`load()` compiles `csrc/cut_kernels.cu` with `nvcc` into a shared
-library with a plain C interface the first time it is called, and loads
-it with `ctypes`.  The output lives in `csrc/build/` (listed in
-`.gitignore`), keyed on a hash of the source and the flags, so an edit
-rebuilds and an unchanged source is compiled once per checkout.  Nothing
-is built or loaded at import time: machines without `nvcc` import this
-module freely.
+`load()` compiles every `csrc/*.cu` source with `nvcc` the first time it
+is called, one `nvcc` per source, all started together, links the
+objects into one shared library with a plain C interface, and loads it
+with `ctypes`.  The library lives in `csrc/build/` (listed in
+`.gitignore`), keyed on a hash of every source and header and of the
+flags, so an edit rebuilds and an unchanged tree is compiled once per
+checkout.  A failed build raises.  Nothing is built or loaded at import
+time: machines without `nvcc` import this module freely.
 """
 from __future__ import annotations
 
@@ -21,10 +22,11 @@ from pathlib import Path
 from typing import Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = _CSRC / "cut_kernels.cu"
+SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
+HEADERS = tuple(sorted(_CSRC.glob("*.cuh")))
 BUILD_DIR = _CSRC / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -42,29 +44,42 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"cut_kernels-{h.hexdigest()[:16]}.so"
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in SOURCES + HEADERS:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"repro_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with the output of any that
+    fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def _compile(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never
-    # see a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    # build in a private directory, then rename: concurrent builders
+    # never see a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(SOURCES, objs)])
+        lib = os.path.join(tmp, out.name)
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -77,6 +92,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, i, p, i, p, i, ll, p]
         fn.restype = i
+    f = ctypes.c_float
+    lib.fused_cut_round_max_rows.argtypes = []
+    lib.fused_cut_round_max_rows.restype = i
+    lib.fused_cut_round_scratch.argtypes = [i, ll]
+    lib.fused_cut_round_scratch.restype = ll
+    lib.fused_cut_round.argtypes = [p, i, *([p] * 12), i, ll, f, f, f, f, p]
+    lib.fused_cut_round.restype = i
     return lib
 
 

@@ -22,71 +22,20 @@
 //
 // Each launcher returns cudaGetLastError() so the caller can raise on a
 // refused launch.  Kernels allocate nothing; the caller passes outputs
-// and scratch.  Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3
-// -shared -Xcompiler -fPIC (see repro_torch/kernels/build.py).
+// and scratch.  Built for sm_90a with the other sources of this
+// directory into one library by repro_torch/kernels/build.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "cut_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;        // cut rows held in registers per pass
-constexpr int kChunkCols = 1024;  // columns of D per pass-1 block
-
-__device__ __forceinline__ float ld(const float* p, long long i) {
-  return __ldg(p + i);
-}
-
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
-}
-
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_down_sync(0xffffffffu, s, off);
-  }
-  return s;
-}
 
 template <typename TA, typename TV>
 __global__ void __launch_bounds__(kThreads)
 matvec_partial(const TA* __restrict__ a, const TV* __restrict__ v,
                float* __restrict__ partial, int p, long long d,
                int n_chunks) {
-  __shared__ float red[kWarps][kRows];
-  const long long c0 = static_cast<long long>(blockIdx.x) * kChunkCols;
-  const long long c1 = min(c0 + kChunkCols, d);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int p0 = 0; p0 < p; p0 += kRows) {
-    const int nr = min(kRows, p - p0);
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (long long col = c0 + threadIdx.x; col < c1; col += kThreads) {
-      const float x = ld(v, col);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < nr) acc[r] += ld(a, (p0 + r) * d + col) * x;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float s = warp_sum(acc[r]);
-      if (lane == 0) red[warp][r] = s;
-    }
-    __syncthreads();
-    if (threadIdx.x < nr) {
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
-      partial[static_cast<long long>(p0 + threadIdx.x) * n_chunks
-              + blockIdx.x] = s;
-    }
-    __syncthreads();
-  }
+  chunk_matvec(a, [v](long long col) { return ld(v, col); }, partial, p, d,
+               n_chunks);
 }
 
 // One block per cut row: the row's partials in a fixed order.
@@ -94,17 +43,8 @@ __global__ void __launch_bounds__(kThreads)
 matvec_finish(const float* __restrict__ partial, float* __restrict__ out,
               int n_chunks) {
   __shared__ float red[kWarps];
-  const float* row = partial + static_cast<long long>(blockIdx.x) * n_chunks;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n_chunks; i += kThreads) s += row[i];
-  s = warp_sum(s);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = 0.f;
-    for (int w = 0; w < kWarps; ++w) t += red[w];
-    out[blockIdx.x] = t;
-  }
+  const float t = row_total(partial, blockIdx.x, n_chunks, red);
+  if (threadIdx.x == 0) out[blockIdx.x] = t;
 }
 
 // One thread per column, the P rows summed in order; loads of A are
@@ -149,7 +89,7 @@ template <typename TA, typename TV>
 cudaError_t launch_matvec(const void* a, const void* v, float* partial,
                           float* out, int p, long long d,
                           cudaStream_t stream) {
-  const int n_chunks = static_cast<int>((d + kChunkCols - 1) / kChunkCols);
+  const int n_chunks = n_chunks_of(d);
   matvec_partial<TA, TV><<<n_chunks, kThreads, 0, stream>>>(
       static_cast<const TA*>(a), static_cast<const TV*>(v), partial, p, d,
       n_chunks);

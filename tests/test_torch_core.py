@@ -376,17 +376,6 @@ def test_h_i_and_h_ii_values_and_gradients_match_reference():
             np.testing.assert_allclose(g.numpy(), _np(w), **F32, err_msg=k)
 
 
-def test_fused_inner_round_is_not_ported_yet():
-    _, tp, _, ft, a = _toy()
-    T = {k: torch.tensor(v) for k, v in a.items()}
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        inner.rollout2(
-            tp, types.Hyper(use_fused_inner=True, **HYP), T["z1"], T["z3"],
-            T["X3"], ft, types.InnerState2(x2=T["X2"], z2=T["z2"],
-                                           phi=T["phi"], s=T["s"],
-                                           gamma=T["gamma"]))
-
-
 # ---------------------------------------------------------------------------
 # one step, one refresh, the gap and the Lagrangians from one state
 # ---------------------------------------------------------------------------

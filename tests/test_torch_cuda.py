@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import Hyper, RunSpec, TrilevelProblem, run
-from repro_torch.kernels import ops
+from repro_torch.apps import domain_adaptation as da
+from repro_torch.core import (Hyper, RunSpec, StragglerConfig,
+                              TrilevelProblem, run)
+from repro_torch.kernels import inner_round, ops
 from repro_torch.kernels import cut_eval as kern
 
 F32 = dict(rtol=1e-4, atol=1e-5)
@@ -116,3 +118,117 @@ def test_quickstart_runs_through_the_kernels(cuda):
     assert gap[-1] < gap[0]
     np.testing.assert_allclose(gap, ref.history["gap_sq"], rtol=1e-4,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the fused level-2 round
+# ---------------------------------------------------------------------------
+
+STEPS = (0.05, 0.05, 0.05, 1.0)   # eta_z, eta_s, eta_dual, rho2
+
+
+def _round_operands(p, d, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor((rng.normal(size=shape) * scale)
+                            .astype(np.float32)).to(device)
+
+    return dict(
+        a=t(p, d, scale=d ** -0.5).to(dtype), v=t(d), g_other=t(d),
+        mask=torch.tensor((np.arange(d) % 3 > 0).astype(np.float32))
+        .to(device),
+        c=t(p), active=torch.tensor(
+            (rng.uniform(size=p) > 0.3).astype(np.float32)).to(device),
+        s=t(p).abs(), gamma=t(p).abs())
+
+
+ROUND_ARGS = ("a", "v", "g_other", "mask", "c", "active", "s", "gamma")
+
+
+@pytest.mark.parametrize("p,d", [(1, 7), (3, 1025), (8, 57_366),
+                                 (2, 100_000), (13, 5000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_round_kernel_matches_plain_version(cuda, p, d, dtype):
+    o = _round_operands(p, d, p + d, dtype, cuda)
+    args = [o[k] for k in ROUND_ARGS]
+    kw = dict(zip(("eta_z", "eta_s", "eta_dual", "rho2"), STEPS))
+    kern.reset_launches()
+    got = inner_round.fused_cut_round(*args, **kw)
+    assert dict(kern.LAUNCHES) == {"fused_round": 1}
+    want = inner_round.fused_cut_round_ref(*args, **kw)
+    tol = F32 if dtype == torch.float32 else BF16
+    for x, y in zip(got, want):
+        assert x.dtype == torch.float32
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), **tol)
+    again = inner_round.fused_cut_round(*args, **kw)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+def test_fused_round_derivatives_through_the_kernels(cuda):
+    """First derivatives against plain-torch autograd; grad-of-grad
+    against a float64 computation of the same round."""
+    o = _round_operands(8, 4096, 5, torch.float32, cuda)
+    wrt = ("a", "v", "s", "gamma")
+
+    def derivs(impl, dtype=torch.float32):
+        x = {k: o[k].detach().clone().to(dtype).requires_grad_(k in wrt)
+             for k in o}
+        args = [x[k] for k in ROUND_ARGS]
+        if impl is None:
+            outs = inner_round.fused_round_math(
+                lambda a, v: a @ v, lambda g, a: g @ a, *args, *STEPS)
+        else:
+            outs = ops.fused_cut_round(
+                *args, impl=impl,
+                **dict(zip(("eta_z", "eta_s", "eta_dual", "rho2"), STEPS)))
+        loss = sum(torch.sum(t ** 2) for t in outs)
+        g = torch.autograd.grad(loss, [x[k] for k in wrt],
+                                create_graph=True)
+        gg = torch.autograd.grad(sum(torch.sum(t ** 2) for t in g),
+                                 [x["a"], x["v"]])
+        return g, gg
+
+    kern.reset_launches()
+    g_k, gg_k = derivs("kernel")
+    assert kern.LAUNCHES["fused_round"] == 1
+    assert kern.LAUNCHES["vecmat"] > 0 and kern.LAUNCHES["rank1"] > 0
+    g_p, gg_p = derivs("ref")
+    for x, y in zip(g_k, g_p):
+        np.testing.assert_allclose(x.detach().cpu().numpy(),
+                                   y.detach().cpu().numpy(), **F32)
+    _, gg_t = derivs(None, torch.float64)
+    for k, p, t in zip(gg_k, gg_p, gg_t):
+        scale = float(t.abs().max())
+        assert scale > 0.0
+        e_k = float((k.double() - t).abs().max()) / scale
+        e_p = float((p.double() - t).abs().max()) / scale
+        assert e_k <= 2 * e_p + 1e-6, (e_k, e_p)
+
+
+def test_domain_adaptation_runs_through_the_fused_kernel(cuda):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    task = da.make_domain_adaptation_problem(
+        2, n_pretrain_per=8, n_finetune_per=8, seed=0, device=cuda)
+    hyper = da.default_hyper(2, 2, 5, t_pre=4, k_inner=1, p_max=2,
+                             use_fused_inner=True)
+    spec = RunSpec(problem=task.problem, hyper=hyper, n_iterations=8,
+                   metrics_every=4,
+                   scheduler=StragglerConfig(n_workers=2, s_active=2,
+                                             tau=5, seed=0),
+                   metrics_fn=lambda s: task.test_metrics(
+                       {k: v.mean(0) for k, v in s.X2.items()}))
+    kern.reset_launches()
+    res = run(spec)
+    assert kern.LAUNCHES["fused_round"] > 0 and kern.LAUNCHES["matvec"] > 0
+    plain = run(dataclasses.replace(
+        spec, hyper=dataclasses.replace(hyper, cut_impl="ref")))
+    for k in ("gap_sq", "test_loss", "test_acc"):
+        assert np.all(np.isfinite(res.history[k]))
+        np.testing.assert_allclose(res.history[k], plain.history[k],
+                                   rtol=1e-4, atol=1e-6)
+    for k in ("n_cuts_i", "n_cuts_ii"):
+        assert list(res.history[k]) == list(plain.history[k])
