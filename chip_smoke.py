@@ -39,6 +39,20 @@ file; exits non-zero, printing no result, without them.  Phases:
    the fused kernel; two refreshes each) and of domain adaptation (one
    refresh) under `torch.profiler`: the device's busy share and the
    kernels that fill it.
+7. The LLM kernels against their plain versions on the card: the flash
+   attention kernel at Llama-3 8B's prefill shape (B 4, S = T = 1024,
+   H 32, Hkv 8, hd 128; windows 0 and 1024) and two ragged shapes, the
+   mLSTM chunk kernel at xLSTM-125M's chunk (B 4, H 4, L 256, hd 192)
+   and at L = 100, with a carried state; f32 and bf16, bitwise repeats,
+   device times beside the bound, the plain version and (flash only)
+   `scaled_dot_product_attention`, a yardstick the port never calls.
+8. Llama-3 8B serving at full width and depth (bf16, random weights from
+   seed 0): `serve(batch=4, prompt_len=1024, gen=32)` on the kernel route
+   and on the plain route; prefill logits of the two routes compared, and
+   again in f32 with the depth cut to 2 layers; one prefill under
+   `torch.profiler`.
+9. xLSTM-125M serving at its full config (bf16): the same, with the f32
+   run at full depth.
 
 The line before the nvidia-smi line is a JSON object listing every
 ported kernel; the last line is the JSON result.
@@ -76,11 +90,16 @@ GOG_FLOOR = {"float32": 1e-6, "bfloat16": 1e-2}
 SOURCES = {"matvec": "src/repro_torch/kernels/csrc/cut_kernels.cu",
            "vecmat": "src/repro_torch/kernels/csrc/cut_kernels.cu",
            "rank1": "src/repro_torch/kernels/csrc/cut_kernels.cu",
-           "fused_round": "src/repro_torch/kernels/csrc/inner_round.cu"}
+           "fused_round": "src/repro_torch/kernels/csrc/inner_round.cu",
+           "flash_attention":
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "mlstm_chunk": "src/repro_torch/kernels/csrc/mlstm_chunk.cu"}
 REPLACES = {"matvec": "src/repro/kernels/cut_eval.py:60",
             "vecmat": "src/repro/kernels/cut_eval.py:96",
             "rank1": "src/repro/kernels/cut_eval.py:129",
-            "fused_round": "src/repro/kernels/inner_round.py:53"}
+            "fused_round": "src/repro/kernels/inner_round.py:53",
+            "flash_attention": "src/repro/kernels/flash_attention.py:26",
+            "mlstm_chunk": "src/repro/kernels/mlstm_chunk.py:25"}
 KERNELS = tuple(REPLACES)
 STEP_NAMES = ("eta_z", "eta_s", "eta_dual", "rho2")
 
@@ -187,11 +206,11 @@ def work(name, o):
     return p * es + d * es + p * d * 4, p * d
 
 
-def bound_of(nbytes, flops):
+def bound_of(nbytes, t_ops):
     """(ms, what bounds it): the least time for the work on this card,
-    the larger of the bytes over the memory rate and the f32 operations
-    over the f32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    the larger of the bytes over the memory rate and `t_ops`, the seconds
+    its operations take at their types' peak rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_bytes, t_ops) * 1e3, \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -231,7 +250,8 @@ def kernel_phase():
                 ms = median_ms(kern, copies)
                 plain_ms = median_ms(plain, copies)
                 lib_ms = median_ms(lib, copies)
-                bound, bound_by = bound_of(*work(name, o))
+                nbytes, flops = work(name, o)
+                bound, bound_by = bound_of(nbytes, flops / F32_FLOP_PER_S)
                 print(f"{name:7s} {dname:8s} {p:3d} {d:7d}  {err:.3e}  "
                       f"{ms:.4f}  {plain_ms:.4f}  {lib_ms:.4f}  "
                       f"{bound:.4f}", flush=True)
@@ -384,7 +404,8 @@ def fused_phase(rows):
             plain_ms = median_ms(plain, copies)
             lib_ms = median_ms(three_calls, copies) \
                 if dtype == torch.float32 else float("nan")
-            bound, bound_by = bound_of(*round_work(o))
+            nbytes, flops = round_work(o)
+            bound, bound_by = bound_of(nbytes, flops / F32_FLOP_PER_S)
             print(f"fused   {dname:8s} {p:3d} {d:7d}  "
                   + "/".join(f"{e:.2e}" for e in errs)
                   + f"  {ms:.4f}  {plain_ms:.4f}  {lib_ms:.4f}  "
@@ -695,23 +716,31 @@ def da_phase(rows):
 
 # the port's kernels by the names the profiler gives them
 OUR_KERNELS = ("matvec", "vecmat", "rank1", "round_mv", "round_update",
-               "round_finish")
+               "round_finish", "flash_fwd", "mlstm_y", "mlstm_state")
 
 
 def profile_phase(label, spec):
     """Device time of 20 iterations of `spec` by kernel, and the device's
     busy share of the wall time, under torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import run
 
     spec = dataclasses.replace(spec, n_iterations=20, metrics_every=10,
                                metrics_fn=None)
+    profile_call(f"{label} (20 iterations, profiler on)",
+                 lambda: run(spec))
+
+
+def profile_call(label, fn):
+    """Device time of one call of `fn` by kernel, and the device's busy
+    share of the wall time, under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(spec)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -724,7 +753,7 @@ def profile_phase(label, spec):
     ours = sum(us for name, (_, us) in by_name.items()
                if any(k in name for k in OUR_KERNELS))
     n_kernels = sum(n for n, _ in by_name.values())
-    print(f"profile, {label} (20 iterations, profiler on): wall "
+    print(f"profile, {label}: wall "
           f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.2f} ms "
           f"({100 * busy_us / wall_us:.1f}%), {n_kernels} kernels, the "
           f"port's kernels {ours / 1e3:.3f} ms ({100 * ours / busy_us:.1f}%"
@@ -732,6 +761,449 @@ def profile_phase(label, spec):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     for name, (n, us) in top:
         print(f"  {us / 1e3:8.3f} ms  {n:6d}x  {name[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the LLM kernels
+# ---------------------------------------------------------------------------
+
+BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 on the tensor cores
+FLASH_TOL = {"float32": 2e-3, "bfloat16": 4e-2}   # tests/test_kernels.py:230
+MLSTM_TOL = {"float32": 6e-3, "bfloat16": 6e-2}   # tests/test_kernels.py:285
+# (B, S, T, H, Hkv, hd, window): Llama-3 8B's prefill first
+FLASH_SHAPES = ((4, 1024, 1024, 32, 8, 128, 0),
+                (4, 1024, 1024, 32, 8, 128, 1024),
+                (4, 1000, 1000, 32, 8, 128, 0),
+                (1, 77, 77, 32, 32, 128, 0))
+# (B, H, L, hd): xLSTM-125M's chunk first
+MLSTM_SHAPES = ((4, 4, 256, 192), (4, 4, 100, 192))
+
+
+def flop_rate(dtype) -> float:
+    import torch
+    return BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+
+
+def causal_pairs(s, t, window):
+    """Query-key pairs a causal (windowed) attention of these lengths
+    computes: the work this run's masks leave."""
+    q = np.arange(s)
+    hi = np.minimum(q, t - 1)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_operands(shape, dtype, seed):
+    import torch
+    b, s, t, h, hkv, hd, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*sh):
+        return torch.randn(sh, generator=g, device="cuda").to(dtype)
+
+    return {"q": rnd(b, s, h, hd), "k": rnd(b, t, hkv, hd),
+            "v": rnd(b, t, hkv, hd)}
+
+
+def flash_work(shape, dtype):
+    """(bytes, seconds of operations): q, k, v read and the output written
+    once; q k^T and p v over the pairs the masks leave, at the input
+    type's rate."""
+    b, s, t, h, hkv, hd, window = shape
+    es = 2 if "bfloat16" in str(dtype) else 4
+    nbytes = (2 * b * s * h * hd + 2 * b * t * hkv * hd) * es
+    flops = 4 * hd * causal_pairs(s, t, window) * b * h
+    return nbytes, flops / flop_rate(dtype)
+
+
+def mlstm_operands(shape, dtype, seed):
+    import torch
+    b, h, l, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*sh, scale=1.0):
+        return torch.randn(sh, generator=g, device="cuda") * scale
+
+    return {"q": rnd(b, h, l, hd).to(dtype), "k": rnd(b, h, l, hd).to(dtype),
+            "v": rnd(b, h, l, hd).to(dtype), "li": rnd(b, h, l, 1, scale=0.5),
+            "lf": torch.nn.functional.logsigmoid(rnd(b, h, l, 1) + 2.0),
+            "c": rnd(b, h, hd, hd, scale=0.3), "n": rnd(b, h, 1, hd,
+                                                       scale=0.3),
+            "m": rnd(b, h, 1, 1)}
+
+
+MLSTM_ARGS = ("q", "k", "v", "li", "lf", "c", "n", "m")
+
+
+def mlstm_work(shape, dtype):
+    """(bytes, seconds of operations): q/k/v, gates and state read once,
+    y and the new state written once; q k^T and p v over the causal pairs
+    and k^T v at the input type's rate, q C and q . n (C and n are f32)
+    at the f32 rate."""
+    b, h, l, hd = shape
+    es = 2 if "bfloat16" in str(dtype) else 4
+    bh = b * h
+    nbytes = bh * (4 * l * hd * es + 2 * l * 4
+                   + 2 * (hd * hd + hd + 1) * 4)
+    typed = bh * (4 * hd * l * (l + 1) // 2 + 2 * l * hd * hd + 2 * l * hd)
+    f32 = bh * (2 * l * hd * hd + 2 * l * hd)
+    return nbytes, typed / flop_rate(dtype) + f32 / F32_FLOP_PER_S
+
+
+def llm_kernel_phase(rows):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import mlstm_chunk as mk
+    from repro_torch.kernels import ref
+
+    print("flash   dtype     B    S    T  H Hkv  hd window  max_abs_err  "
+          "ms  plain_ms  sdpa_ms  bound_ms")
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        tol = FLASH_TOL[dname]
+        for i, shape in enumerate(FLASH_SHAPES):
+            window = shape[-1]
+            o = flash_operands(shape, dtype, seed=400 + i)
+
+            def kern(o, window=window):
+                return flash.flash_attention(o["q"], o["k"], o["v"],
+                                             causal=True, window=window)
+
+            def plain(o, window=window):
+                return ref.flash_attention_ref(o["q"], o["k"], o["v"],
+                                               causal=True, window=window)
+
+            got = kern(o)
+            try:
+                err = close(got, plain(o), tol, tol)
+            except AssertionError as e:
+                fail(f"flash_attention {dname} {shape} vs plain: {e}")
+            check(torch.equal(got, kern(o)),
+                  f"flash_attention {dname} {shape} not bitwise repeatable")
+            line = (f"flash   {dname:8s} " + " ".join(str(x) for x in shape)
+                    + f"  {err:.3e}")
+            if i == 0:
+                nbytes, t_ops = flash_work(shape, dtype)
+                copies = [flash_operands(shape, dtype, seed=500 + k)
+                          for k in range(max(2, -(-2 * L2_BYTES // nbytes)))]
+
+                def sdpa(o):
+                    return F.scaled_dot_product_attention(
+                        o["q"].transpose(1, 2), o["k"].transpose(1, 2),
+                        o["v"].transpose(1, 2), is_causal=True,
+                        enable_gqa=True)
+
+                lib_err = float((sdpa(o).transpose(1, 2).float()
+                                 - plain(o).float()).abs().max())
+                ms = median_ms(kern, copies, n_launch=8, reps=5)
+                plain_ms = median_ms(plain, copies, n_launch=4, reps=5)
+                lib_ms = median_ms(sdpa, copies, n_launch=8, reps=5)
+                bound, bound_by = bound_of(nbytes, t_ops)
+                line += (f"  {ms:.4f}  {plain_ms:.4f}  {lib_ms:.4f}  "
+                         f"{bound:.4f} ({bound_by}; sdpa vs plain "
+                         f"{lib_err:.2e})")
+                if dtype == torch.bfloat16:
+                    rows["flash_attention"] = {
+                        "name": "flash_attention", "route": "cuda",
+                        "source": SOURCES["flash_attention"],
+                        "replaces": REPLACES["flash_attention"],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": bound_by,
+                        "library_ms": lib_ms}
+            print(line + "  (bitwise repeatable: yes)", flush=True)
+
+    print("mlstm   dtype     B  H    L   hd  max_abs_err(y/c/n/m)  ms  "
+          "plain_ms  bound_ms")
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        tol = MLSTM_TOL[dname]
+        for i, shape in enumerate(MLSTM_SHAPES):
+            o = mlstm_operands(shape, dtype, seed=600 + i)
+
+            def kern(o):
+                return mk.mlstm_chunk(*(o[k] for k in MLSTM_ARGS))
+
+            def plain(o):
+                return ref.mlstm_chunk_ref(*(o[k] for k in MLSTM_ARGS))
+
+            got = kern(o)
+            try:
+                errs = [close(x, y, tol, tol) for x, y in zip(got, plain(o))]
+            except AssertionError as e:
+                fail(f"mlstm_chunk {dname} {shape} vs plain: {e}")
+            check(all(torch.equal(x, y) for x, y in zip(got, kern(o))),
+                  f"mlstm_chunk {dname} {shape} not bitwise repeatable")
+            line = (f"mlstm   {dname:8s} " + " ".join(str(x) for x in shape)
+                    + "  " + "/".join(f"{e:.2e}" for e in errs))
+            if i == 0:
+                nbytes, t_ops = mlstm_work(shape, dtype)
+                copies = [mlstm_operands(shape, dtype, seed=700 + k)
+                          for k in range(max(2, -(-2 * L2_BYTES // nbytes)))]
+                ms = median_ms(kern, copies)
+                plain_ms = median_ms(plain, copies, n_launch=8, reps=5)
+                bound, bound_by = bound_of(nbytes, t_ops)
+                line += (f"  {ms:.4f}  {plain_ms:.4f}  {bound:.4f} "
+                         f"({bound_by})")
+                if dtype == torch.bfloat16:
+                    rows["mlstm_chunk"] = {
+                        "name": "mlstm_chunk", "route": "cuda",
+                        "source": SOURCES["mlstm_chunk"],
+                        "replaces": REPLACES["mlstm_chunk"],
+                        "max_abs_err": max(errs), "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": bound_by, "library_ms": None}
+            print(line + "  (bitwise repeatable: yes)", flush=True)
+    print("  mlstm_chunk has no single library call (the chunk is a decayed "
+          "attention plus a matrix-memory update): library_ms null")
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 9: LLM serving at full width
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
+# prefill in f32, kernel route vs plain route, max |diff| / max |entry|:
+# the kernels' own f32 tolerances (Llama's logits; xLSTM block by block)
+ROUTE_TOL = {"llama3-8b": 2e-3, "xlstm-125m": 6e-3}
+# bf16 at full depth: each route's logits against an f32 evaluation of
+# the same weights (plain route); the kernel route may be at most this
+# many times farther from it than the plain route, plus BF16_FLOOR
+DISTANCE_FACTOR, BF16_FLOOR = 2.0, 1e-3
+# and kernel vs plain route directly, where bf16 rounding leaves a
+# margin: Llama-3 8B measured 1.712e-2 on the H100; xLSTM-125M's routes
+# differ by as much as bf16 differs from f32 (0.95 vs 0.94), so only the
+# f32-distance gate holds it
+BF16_ROUTE_TOL = {"llama3-8b": 5e-2, "xlstm-125m": None}
+
+
+def rel_diff(a, b):
+    """max |a - b| / max |b|."""
+    return float((a.float() - b.float()).abs().max()) \
+        / float(b.float().abs().max())
+
+
+def prefill_logits(cfg, params, prompts, impl=None):
+    """Prefill logits and the kernels launched for them."""
+    import torch
+    from repro_torch.kernels import cut_eval as K
+    from repro_torch.models import transformer as tfm
+
+    with torch.inference_mode():
+        K.reset_launches()
+        logits = tfm.prefill(cfg, params, prompts, impl=impl)[0]
+        launches = dict(K.LAUNCHES)
+    check(bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: prefill logits not finite")
+    check(logits.shape == (prompts.shape[0], prompts.shape[1],
+                           cfg.vocab_size),
+          f"{cfg.name}: prefill logits of shape {tuple(logits.shape)}")
+    return logits, launches
+
+
+def bf16_route_check(cfg, params, prompts, tol):
+    """Kernel and plain routes in bf16 against each other and against an
+    f32 evaluation of the same weights; gates: the kernel route no
+    farther from the f32 logits than DISTANCE_FACTOR times the plain
+    route's distance plus BF16_FLOOR, and within `tol` of the plain route
+    where `tol` is given."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.utils.tree import tree_map
+
+    got, _ = prefill_logits(cfg, params, prompts)
+    plain, _ = prefill_logits(cfg, params, prompts, impl="ref")
+    rel_kp = rel_diff(got, plain)
+    params32 = tree_map(lambda a: a.float(), params)
+    f32, _ = prefill_logits(dc.replace(cfg, dtype="float32"), params32,
+                            prompts, impl="ref")
+    del params32
+    d_k, d_p = rel_diff(got, f32), rel_diff(plain, f32)
+    agree = float((got[:, -1].argmax(-1) == plain[:, -1].argmax(-1))
+                  .float().mean())
+    print(f"  prefill logits (bf16, full depth), max |diff| / max |logit|: "
+          f"kernel vs plain route {rel_kp:.3e}; vs the f32 evaluation of "
+          f"the same weights: kernel route {d_k:.3e}, plain route "
+          f"{d_p:.3e} (gate {DISTANCE_FACTOR} x plain + {BF16_FLOOR}); "
+          f"last-position argmax equal on {agree:.2f} of the rows",
+          flush=True)
+    check(d_k <= DISTANCE_FACTOR * d_p + BF16_FLOOR,
+          f"{cfg.name} bf16: the kernel route is {d_k:.3e} from the f32 "
+          f"logits, the plain route {d_p:.3e}")
+    if tol is not None:
+        print(f"  kernel vs plain route gate (bf16): {tol}")
+        check(rel_kp <= tol, f"{cfg.name} bf16 prefill logits of the two "
+              f"routes differ by {rel_kp:.3e}")
+    del got, plain, f32
+    torch.cuda.empty_cache()
+
+
+def serve_phase(arch, kernel, per_prefill, f32_cfg, per_block=False):
+    """Serve `arch` at full width on both routes; check the launches, the
+    prefill logits of the two routes (bf16, then f32 on `f32_cfg`: whole
+    model, or block by block with `per_block`), and return {kernel:
+    launches}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.kernels import cut_eval as K
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import param_count
+
+    cfg = get_config(arch)
+    n_params = param_count(cfg)["total"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    print(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+          f"{n_params / 1e9:.3f} B parameters drawn in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card",
+          flush=True)
+    # first use of every path outside the timed runs
+    serve(cfg, SERVE_BATCH, 64, 2, params=params)
+    serve(cfg, SERVE_BATCH, 64, 2, params=params, impl="ref")
+
+    runs = {}
+    for impl, label in ((None, "kernel"), ("ref", "plain"), (None, "kernel"),
+                        ("ref", "plain")):
+        K.reset_launches()
+        res = serve(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, seed=0,
+                    params=params, impl=impl)
+        launches = dict(K.LAUNCHES)
+        runs.setdefault(label, []).append((res, launches))
+        print(f"  {label:6s} route: prefill {res['prefill_s'] * 1e3:.2f} ms,"
+              f" decode {res['decode_s'] / (SERVE_GEN - 1) * 1e3:.3f} "
+              f"ms/token, {res['tok_per_s']:.1f} tok/s, launches {launches}",
+              flush=True)
+    res, launches = runs["kernel"][0]
+    check(launches == {kernel: per_prefill},
+          f"{arch}: the kernel route launched {launches}, expected "
+          f"{{{kernel!r}: {per_prefill}}}")
+    check(all(sum(x[1].values()) == 0 for x in runs["plain"]),
+          f"{arch}: the plain route launched kernels")
+    gen_k, gen_p = res["generated"], runs["plain"][0][0]["generated"]
+    check(gen_k.shape == (SERVE_BATCH, SERVE_GEN)
+          and bool(((gen_k >= 0) & (gen_k < cfg.vocab_size)).all()),
+          f"{arch}: generated tokens of shape {gen_k.shape} out of range")
+    agree = float((gen_k == gen_p).mean())
+    print(f"  greedy tokens equal on the two routes: {agree:.4f} of "
+          f"{gen_k.size}; first row (kernel route): "
+          f"{gen_k[0, :16].tolist()}")
+    prompts = torch.as_tensor(make_token_stream(
+        cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT, seed=0), device="cuda")
+    bf16_route_check(cfg, params, prompts, BF16_ROUTE_TOL[arch])
+    with torch.inference_mode():
+        profile_call(f"{arch} prefill, kernel route",
+                     lambda: tfm.prefill(cfg, params, prompts))
+        _, caches = tfm.prefill(cfg, params, prompts,
+                                max_seq=SERVE_PROMPT + SERVE_GEN + 1)
+        tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device="cuda")
+
+        def decode4():
+            c = caches
+            for i in range(4):
+                pos = torch.full((SERVE_BATCH,), SERVE_PROMPT + i,
+                                 dtype=torch.int32, device="cuda")
+                c = tfm.decode_step(cfg, params, c, tok, pos)[1]
+
+        profile_call(f"{arch} 4 decode steps", decode4)
+        del caches
+
+    del params
+    torch.cuda.empty_cache()
+    params = tfm.init_params(
+        f32_cfg, torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    got, launches32 = prefill_logits(f32_cfg, params, prompts)
+    plain = prefill_logits(f32_cfg, params, prompts, impl="ref")[0]
+    rel32 = rel_diff(got, plain)
+    tol = ROUTE_TOL[arch]
+    print(f"  prefill logits, kernel vs plain route (f32, "
+          f"{f32_cfg.n_layers} layers): max |diff| / max |logit| "
+          f"{rel32:.3e}; launches {launches32}", flush=True)
+    if per_block:
+        f32_depth_check(f32_cfg, params, prompts, got, plain, tol)
+    else:
+        check(rel32 <= tol, f"{arch} f32 prefill logits differ by "
+              f"{rel32:.3e} (gate {tol})")
+    del params, got, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def f32_depth_check(cfg, params, prompts, got, plain, tol):
+    """For a model that amplifies f32 rounding from block to block (the
+    random-weight xLSTM: about 3x per block), hold each block's kernel
+    route to its plain route on the same input at `tol`, and the kernel
+    route's logits to an independent f32 evaluation (the plain route on
+    the CPU) no farther than DISTANCE_FACTOR times the plain card route's
+    distance plus `tol`."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_index, tree_map
+
+    worst, apart = 0.0, []
+    b, s = prompts.shape
+    with torch.inference_mode():
+        x = x_kern = params["embed"][prompts.long()]
+        pos = torch.arange(s, dtype=torch.int32, device="cuda")[None] \
+            .expand(b, s)
+        for st_params, st in zip(params["stages"], cfg.stages):
+            for r in range(st.repeats):
+                for i, spec in enumerate(st.pattern):
+                    bp = tree_index(st_params[f"pos{i}"], r)
+                    out = tfm._block_fwd(cfg, spec, bp, x, pos)[0]
+                    x = tfm._block_fwd(cfg, spec, bp, x, pos, impl="ref")[0]
+                    worst = max(worst, rel_diff(out, x))
+                    # the two routes' residual streams, each run on its own
+                    x_kern = tfm._block_fwd(cfg, spec, bp, x_kern, pos)[0]
+                    apart.append(rel_diff(x_kern, x))
+    print("  f32, the two routes' residual streams run apart, after each "
+          "block (max |diff| / max |entry|): "
+          + " ".join(f"{a:.1e}" for a in apart), flush=True)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        cpu = tfm.prefill(cfg, tree_map(lambda a: a.cpu(), params),
+                          prompts.cpu())[0]
+        cpu_s = time.perf_counter() - t0
+    d_k, d_p = rel_diff(got.cpu(), cpu), rel_diff(plain.cpu(), cpu)
+    print(f"  f32, each block on the same input: kernel vs plain route at "
+          f"most {worst:.3e} of the block's largest output (gate {tol}); "
+          f"logits vs the plain route on the CPU ({cpu_s:.1f} s): kernel "
+          f"route {d_k:.3e}, plain card route {d_p:.3e} (gate "
+          f"{DISTANCE_FACTOR} x plain + {tol})", flush=True)
+    check(worst <= tol, f"{cfg.name} f32: a block's kernel route differs "
+          f"by {worst:.3e} from its plain route")
+    check(d_k <= DISTANCE_FACTOR * d_p + tol,
+          f"{cfg.name} f32: the kernel route is {d_k:.3e} from the CPU "
+          f"logits, the plain card route {d_p:.3e}")
+
+
+def llama_phase(rows):
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import BlockSpec, uniform_stages
+
+    cfg32 = dc.replace(get_config("llama3-8b"), dtype="float32", n_layers=2,
+                       stages=uniform_stages(2, BlockSpec()))
+    launches = serve_phase("llama3-8b", "flash_attention", 32, cfg32)
+    rows["flash_attention"]["launches"] = int(launches["flash_attention"])
+
+
+def xlstm_phase(rows):
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+
+    cfg32 = dc.replace(get_config("xlstm-125m"), dtype="float32")
+    launches = serve_phase("xlstm-125m", "mlstm_chunk", 40, cfg32,
+                           per_block=True)
+    rows["mlstm_chunk"]["launches"] = int(launches["mlstm_chunk"])
 
 
 def main() -> None:
@@ -753,6 +1225,9 @@ def main() -> None:
     profile_phase("white-wine, fused kernel (two refreshes)",
                   ww_specs["fused"])
     profile_phase("domain adaptation, fused kernel (one refresh)", da_spec)
+    llm_kernel_phase(rows)
+    llama_phase(rows)
+    xlstm_phase(rows)
     print("ms/iteration, mean of two runs per route: white-wine "
           + ", ".join(f"{k} {v:.3f}" for k, v in ww_ms.items())
           + "; domain adaptation "

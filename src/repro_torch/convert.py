@@ -1,10 +1,15 @@
 """Carry weights and state between the JAX package and the port.
 
 The two packages meet only through numpy: the reference's trees (MLP
-parameters, problem data, a whole `AFTOState`) are handed over as numpy
-arrays, or anything `np.asarray` accepts, and come back as numpy for
-comparison.  No jax import is needed; a reference state is read by its
-field names, which the port's dataclasses share.
+parameters, problem data, a whole `AFTOState`, an LLM's parameter tree)
+are handed over as numpy arrays, or anything `np.asarray` accepts, and
+come back as numpy for comparison.  No jax import is needed; a reference
+state is read by its field names, which the port's dataclasses share.
+
+bf16: `np.array` of a JAX bf16 array has the `ml_dtypes` bfloat16 dtype,
+which torch refuses; such a leaf crosses as its 16-bit patterns viewed
+as `torch.bfloat16`, so the numbers do not change.  Coming back, a bf16
+tensor becomes f32 numpy, which holds every bf16 value exactly.
 """
 from __future__ import annotations
 
@@ -31,7 +36,11 @@ def to_torch(tree, device):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_torch(v, device) for v in tree)
-    return torch.as_tensor(np.array(tree), device=device)
+    arr = np.array(tree)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.as_tensor(arr, device=device)
 
 
 def to_numpy(tree):
@@ -47,7 +56,21 @@ def to_numpy(tree):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy(v) for v in tree)
+    if tree.dtype == torch.bfloat16:
+        tree = tree.float()
     return tree.detach().cpu().numpy()
+
+
+def params_from_reference(tree, device):
+    """An LLM parameter tree of the reference (`repro.models.
+    init_params`; dicts and lists of arrays, bf16 included) as the port's
+    tree of tensors on `device`: the same keys, layouts and values."""
+    return to_torch(tree, device)
+
+
+def params_to_numpy(params):
+    """The port's parameter tree as numpy (bf16 widened to f32)."""
+    return to_numpy(params)
 
 
 def state_from_reference(ref, device) -> AFTOState:

@@ -1,11 +1,11 @@
 """Synthetic datasets with the exact shapes of the paper's benchmarks
 (Table 1).
 
-A numpy copy of the regression and digits parts of
+A numpy copy of the regression, digits and token-stream parts of
 `repro/data/synthetic.py` (the port does not import `repro`).  The
 regression generator is seeded with crc32 of the dataset name and the
-digits generator with the seed, so the arrays are identical to the
-reference's.
+digits and token generators with the seed, so the arrays are identical
+to the reference's.
 """
 from __future__ import annotations
 
@@ -126,3 +126,14 @@ def make_digits(n_workers: int, n_pretrain_per: int = 64,
         x_pretrain=np.stack(xpt), y_pretrain=np.stack(ypt),
         x_finetune=np.stack(xft), y_finetune=np.stack(yft),
         x_test=x_test, y_test=y_test)
+
+
+def make_token_stream(vocab_size: int, batch: int, seq_len: int,
+                      seed: int = 0, zipf_a: float = 1.2) -> np.ndarray:
+    """Zipfian token ids for LM serving smoke runs (the reference's
+    generator, so the prompts are identical in both packages)."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.zipf(zipf_a, size=(batch, seq_len)).astype(np.int64)
+    # overflow ranks wrap (mod) rather than clip: clipping would pile the
+    # heavy zipf tail onto vocab_size-1 and make it the most frequent id
+    return ((ranks - 1) % vocab_size).astype(np.int32)

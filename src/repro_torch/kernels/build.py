@@ -99,6 +99,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_cut_round_scratch.restype = ll
     lib.fused_cut_round.argtypes = [p, i, *([p] * 12), i, ll, f, f, f, f, p]
     lib.fused_cut_round.restype = i
+    for name in ("flash_attention_max_head_dim", "mlstm_chunk_max_head_dim",
+                 "mlstm_chunk_max_len"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    lib.flash_attention.argtypes = [p, p, p, p, *([i] * 9), f, p]
+    lib.flash_attention.restype = i
+    lib.mlstm_chunk.argtypes = [*([p] * 12), i, i, i, i, f, p]
+    lib.mlstm_chunk.restype = i
     return lib
 
 

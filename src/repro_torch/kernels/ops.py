@@ -1,12 +1,14 @@
-"""Public routing points for the cut contraction and the fused round.
+"""Public routing points for every kernel of the port.
 
-Counterpart of `repro/kernels/ops.py` `cut_eval` and `fused_cut_round`.
-The kernel route of `cut_eval` goes through the `cut_ad` Functions, so
-forward, reverse and grad-of-grad all stay on the CUDA kernels; the
-epilogue `(- c) * active` is plain torch, whose autograd supplies
-dc/dactive.  The kernel route of `fused_cut_round` is `FusedRound`: the
-fused kernel on the forward, the same round decomposed onto the `cut_ad`
-Functions on every derivative.
+Counterpart of `repro/kernels/ops.py`: `cut_eval`, `fused_cut_round`,
+`flash_attention`, `mlstm_chunk` and `mlstm_sequence`.  The kernel route
+of `cut_eval` goes through the `cut_ad` Functions, so forward, reverse
+and grad-of-grad all stay on the CUDA kernels; the epilogue
+`(- c) * active` is plain torch, whose autograd supplies dc/dactive.  The
+kernel route of `fused_cut_round` is `FusedRound`: the fused kernel on
+the forward, the same round decomposed onto the `cut_ad` Functions on
+every derivative.  The LLM kernels are forward-only, as the reference's
+are.
 """
 from __future__ import annotations
 
@@ -14,7 +16,10 @@ import torch
 
 from repro_torch.kernels import cut_ad
 from repro_torch.kernels import cut_eval as _kern
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import inner_round as _round
+from repro_torch.kernels import mlstm_chunk as _mlstm
+from repro_torch.kernels import ref
 
 IMPLS = (None, "kernel", "ref")
 
@@ -26,14 +31,14 @@ def cut_eval(a, v, c, active, impl: str = None):
     CPU tensors.  impl="kernel" insists on the kernel (raises on the
     CPU); impl="ref" forces the plain version on any device (the oracle
     the tests and the on-card smoke run compare against)."""
-    if _route(a, impl) == "ref":
+    if route(a, impl) == "ref":
         raw = _kern.matvec_ref(a, v)
     else:
         raw = cut_ad.MV.apply(a, v)
     return (raw - c) * active
 
 
-def _route(a, impl):
+def route(a, impl):
     """The route for `impl` on a's device, "kernel" or "ref"; raises on
     an unknown impl and on impl="kernel" off the card."""
     if impl not in IMPLS:
@@ -54,7 +59,7 @@ def fused_cut_round(a, v, g_other, mask, c, active, s, gamma, *,
     impl=None runs `FusedRound` (the kernel) on CUDA tensors and the
     plain version on CPU tensors, "kernel" insists on the kernel, "ref"
     forces the plain version on any device."""
-    if _route(a, impl) == "ref":
+    if route(a, impl) == "ref":
         return _round.fused_cut_round_ref(
             a, v, g_other, mask, c, active, s, gamma, eta_z=eta_z,
             eta_s=eta_s, eta_dual=eta_dual, rho2=rho2)
@@ -105,3 +110,76 @@ class FusedRound(torch.autograd.Function):
         it = iter(grads)
         return (*(next(it) if n else None for n in need),
                 None, None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# attention / mLSTM
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    block_q: int = 128, block_k: int = 128,
+                    impl: str = None):
+    """Blockwise GQA attention: q (B,S,H,hd), k/v (B,T,Hkv,hd) ->
+    (B,S,H,hd).  Routed like `cut_eval`.
+
+    The reference's wrapper pads to (block_q, block_k) multiples, which
+    only causal masking makes harmless, so it refuses non-causal inputs
+    that are not block-aligned; this wrapper keeps that contract (the
+    same `ValueError`), though the kernel masks ragged edges itself."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    bq = min(block_q, max(8, s))
+    bk = min(block_k, max(8, t))
+    s_pad = ((s + bq - 1) // bq) * bq
+    t_pad = ((t + bk - 1) // bk) * bk
+    if not causal and (t_pad != t or s_pad != s):
+        raise ValueError(
+            "non-causal flash_attention requires block-aligned shapes: "
+            f"got q seq len {s} (block_q={bq}, padded {s_pad}) and "
+            f"k/v seq len {t} (block_k={bk}, padded {t_pad}); pad the "
+            "inputs to block multiples or use causal=True")
+    if route(q, impl) == "ref":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal,
+                                  window=window)
+
+
+def mlstm_chunk(q, k, v, li, lf, c, n, m, impl: str = None):
+    """One mLSTM chunk for all (batch, head) pairs in the kernel layout
+    -> (y, c', n', m'); see `kernels.mlstm_chunk`.  Routed like
+    `cut_eval`."""
+    if route(q, impl) == "ref":
+        return ref.mlstm_chunk_ref(q, k, v, li, lf, c, n, m)
+    return _mlstm.mlstm_chunk(q, k, v, li, lf, c, n, m)
+
+
+def mlstm_sequence(q, k, v, li, lf, state, chunk: int = 256,
+                   impl: str = None):
+    """Full-sequence chunkwise mLSTM through `mlstm_chunk`: q/k/v
+    (B,S,H,hd), li/lf (B,S,H); state dict(c,n,m) as in models.xlstm.
+    The full chunks run one after another and a ragged tail shorter than
+    `chunk` is one more call at its own length, as in the reference.
+    Returns (y (B,S,H,hd), state)."""
+    s = q.shape[1]
+    n_full = s // chunk
+
+    def to_bh(a):                     # (B,S,H,...) -> (B,H,S,...)
+        return a.transpose(1, 2).contiguous() if a.dim() == 4 \
+            else a.transpose(1, 2)[..., None].contiguous()
+
+    qb, kb, vb, lib, lfb = (to_bh(x) for x in (q, k, v, li, lf))
+    c = state["c"]
+    n = state["n"][:, :, None]
+    m = state["m"][:, :, None, None]
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n_full)]
+    if s > n_full * chunk:
+        bounds.append((n_full * chunk, s))
+    ys = []
+    for lo, hi in bounds:
+        y, c, n, m = mlstm_chunk(*(x[:, :, lo:hi].contiguous()
+                                   for x in (qb, kb, vb, lib, lfb)),
+                                 c, n, m, impl=impl)
+        ys.append(y)
+    y = torch.cat(ys, dim=2).transpose(1, 2)
+    return y, {"c": c, "n": n[:, :, 0], "m": m[:, :, 0, 0]}

@@ -1,1 +1,2 @@
-"""Networks of the paper's experiments."""
+"""Networks of the paper's experiments (`simple`) and the LLM serving
+path (`config`, `layers`, `attention`, `xlstm`, `transformer`)."""

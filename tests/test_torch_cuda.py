@@ -232,3 +232,132 @@ def test_domain_adaptation_runs_through_the_fused_kernel(cuda):
                                    rtol=1e-4, atol=1e-6)
     for k in ("n_cuts_i", "n_cuts_ii"):
         assert list(res.history[k]) == list(plain.history[k])
+
+
+# ---------------------------------------------------------------------------
+# the LLM kernels and the serving path
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 4e-2}
+MLSTM_TOL = {torch.float32: 6e-3, torch.bfloat16: 6e-2}
+
+
+def _normal(rng, *shape, scale=1.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,s,t,h,hkv,hd,window", [
+    (2, 64, 64, 4, 2, 32, 0), (2, 64, 64, 4, 2, 32, 24),
+    (1, 77, 77, 4, 4, 128, 0), (2, 200, 200, 8, 2, 128, 50),
+    (1, 20, 37, 2, 1, 16, 0), (1, 37, 20, 2, 1, 64, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, hkv, hd,
+                                            window, dtype):
+    from repro_torch.kernels import flash_attention as flash, ref
+    rng = np.random.default_rng(s + t + window)
+    q, k, v = (torch.tensor(_normal(rng, b, n, heads, hd)).to(dtype)
+               .to(cuda) for n, heads in ((s, h), (t, hkv), (t, hkv)))
+    kern.reset_launches()
+    got = flash.flash_attention(q, k, v, causal=True, window=window)
+    assert kern.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(got, flash.flash_attention(q, k, v, causal=True,
+                                                  window=window))
+
+
+def _mlstm_operands(b, h, l, hd, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.tensor(x).to(device)
+
+    qkv = [t(_normal(rng, b, h, l, hd)).to(dtype) for _ in range(3)]
+    li = t(_normal(rng, b, h, l, 1, scale=0.5))
+    lf = torch.nn.functional.logsigmoid(t(_normal(rng, b, h, l, 1)) + 2.0)
+    c = t(_normal(rng, b, h, hd, hd, scale=0.3))
+    n = t(_normal(rng, b, h, 1, hd, scale=0.3))
+    m = t(_normal(rng, b, h, 1, 1))
+    return (*qkv, li, lf, c, n, m)
+
+
+@pytest.mark.parametrize("l,hd", [(8, 8), (100, 192), (256, 64), (33, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_kernel_matches_plain_version(cuda, l, hd, dtype):
+    from repro_torch.kernels import mlstm_chunk as mk, ref
+    args = _mlstm_operands(2, 3, l, hd, l + hd, dtype, cuda)
+    kern.reset_launches()
+    got = mk.mlstm_chunk(*args)
+    assert kern.LAUNCHES["mlstm_chunk"] == 1
+    want = ref.mlstm_chunk_ref(*args)
+    tol = MLSTM_TOL[dtype]
+    for g, w, name in zip(got, want, ("y", "c", "n", "m")):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), rtol=tol,
+                                   atol=tol, err_msg=name)
+    again = mk.mlstm_chunk(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_kernel_route_is_taken_on_cuda_tensors(cuda):
+    """self_attention and mlstm_apply launch their kernels on CUDA tensors
+    (and only there), and agree with the plain route."""
+    from repro_torch.models import attention, xlstm
+    rng = np.random.default_rng(5)
+    b, s, d, h, hkv, hd = 2, 40, 64, 4, 2, 16
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(_normal(rng, *shape, scale=scale)).to(cuda)
+
+    p = {"wq": t(d, h, hd, scale=d ** -0.5),
+         "wk": t(d, hkv, hd, scale=d ** -0.5),
+         "wv": t(d, hkv, hd, scale=d ** -0.5),
+         "wo": t(h, hd, d, scale=(h * hd) ** -0.5)}
+    x = t(b, s, d)
+    pos = torch.arange(s, device=cuda)[None].expand(b, s)
+    kw = dict(n_kv_heads=hkv, rope_theta=10_000.0, window=0)
+    kern.reset_launches()
+    for impl in ("naive", "chunked"):
+        out, _ = attention.self_attention(p, x, pos, impl=impl, **kw)
+    assert dict(kern.LAUNCHES) == {"flash_attention": 2}
+    want, _ = attention.self_attention(p, x, pos, kernel_impl="ref", **kw)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-3, atol=2e-3)
+    mp = {"wq": t(d, h, hd, scale=d ** -0.5),
+          "wk": t(d, h, hd, scale=d ** -0.5),
+          "wv": t(d, h, hd, scale=d ** -0.5),
+          "wi": t(d, h, scale=d ** -0.5), "wf": t(d, h, scale=d ** -0.5),
+          "fb": torch.full((h,), 3.0, device=cuda),
+          "wo": t(h, hd, d, scale=(h * hd) ** -0.5)}
+    kern.reset_launches()
+    y, st = xlstm.mlstm_apply(mp, x, chunk=16)          # 2 chunks of 20
+    assert dict(kern.LAUNCHES) == {"mlstm_chunk": 2}
+    y_ref, st_ref = xlstm.mlstm_apply(mp, x, chunk=16, impl="ref")
+    assert sum(kern.LAUNCHES.values()) == 2
+    for g, w in ((y, y_ref), *((st[k], st_ref[k]) for k in st)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=6e-3, atol=6e-3)
+
+
+@pytest.mark.parametrize("name,prompt_len", [("llama3-8b", 48),
+                                             ("xlstm-125m", 40)])
+def test_reduced_serve_through_the_kernels(cuda, name, prompt_len):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tfm
+    cfg = reduced(get_config(name))
+    params = tfm.init_params(cfg, torch.Generator(device=cuda)
+                             .manual_seed(0), device=cuda)
+    kern.reset_launches()
+    res = serve(cfg, 2, prompt_len, 6, params=params)
+    launches = dict(kern.LAUNCHES)
+    plain = serve(cfg, 2, prompt_len, 6, params=params, impl="ref")
+    if name == "llama3-8b":
+        assert launches == {"flash_attention": cfg.n_layers}
+    else:
+        assert launches == {"mlstm_chunk": 5 * 2}   # 5 mLSTM layers x 2
+    np.testing.assert_array_equal(res["generated"], plain["generated"])
