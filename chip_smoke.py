@@ -39,18 +39,23 @@ file; exits non-zero, printing no result, without them.  Phases:
    the fused kernel; two refreshes each) and of domain adaptation (one
    refresh) under `torch.profiler`: the device's busy share and the
    kernels that fill it.
-7. The LLM kernels against their plain versions on the card: the flash
-   attention kernel at Llama-3 8B's prefill shape (B 4, S = T = 1024,
-   H 32, Hkv 8, hd 128; windows 0 and 1024) and two ragged shapes, the
-   mLSTM chunk kernel at xLSTM-125M's chunk (B 4, H 4, L 256, hd 192)
-   and at L = 100, with a carried state; f32 and bf16, bitwise repeats,
-   device times beside the bound, the plain version and (flash only)
-   `scaled_dot_product_attention`, a yardstick the port never calls.
+7. The LLM kernels against their plain versions on the card: flash
+   attention at Llama-3 8B's prefill shape (B 4, S = T = 1024, H 32,
+   Hkv 8, hd 128; windows 0 and 1024) and two ragged shapes, in bf16
+   through the tensor-core kernel (plus Whisper's heads, hd 64, S = T =
+   1500) and in f32 through the SIMT kernel, each launch checked against
+   `flash_route`; the mLSTM chunk kernel at xLSTM-125M's chunk (B 4, H 4,
+   L 256, hd 192) and at L = 100, with a carried state, f32 and bf16;
+   bitwise repeats, device times beside the bound, the plain version and
+   (flash only) `scaled_dot_product_attention`, a yardstick the port
+   never calls, and the SIMT kernel's time on the same bf16 inputs.
 8. Llama-3 8B serving at full width and depth (bf16, random weights from
    seed 0): `serve(batch=4, prompt_len=1024, gen=32)` on the kernel route
    and on the plain route; prefill logits of the two routes compared, and
    again in f32 with the depth cut to 2 layers; one prefill under
-   `torch.profiler`.
+   `torch.profiler`.  The bf16 prefill launches the tensor-core flash
+   kernel 32 times and the SIMT kernel never; the f32 one only the SIMT
+   kernel.
 9. xLSTM-125M serving at its full config (bf16): the same, with the f32
    run at full depth.
 
@@ -92,6 +97,8 @@ SOURCES = {"matvec": "src/repro_torch/kernels/csrc/cut_kernels.cu",
            "rank1": "src/repro_torch/kernels/csrc/cut_kernels.cu",
            "fused_round": "src/repro_torch/kernels/csrc/inner_round.cu",
            "flash_attention":
+               "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+           "flash_attention_simt":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "mlstm_chunk": "src/repro_torch/kernels/csrc/mlstm_chunk.cu"}
 REPLACES = {"matvec": "src/repro/kernels/cut_eval.py:60",
@@ -99,6 +106,8 @@ REPLACES = {"matvec": "src/repro/kernels/cut_eval.py:60",
             "rank1": "src/repro/kernels/cut_eval.py:129",
             "fused_round": "src/repro/kernels/inner_round.py:53",
             "flash_attention": "src/repro/kernels/flash_attention.py:26",
+            "flash_attention_simt":
+                "src/repro/kernels/flash_attention.py:26",
             "mlstm_chunk": "src/repro/kernels/mlstm_chunk.py:25"}
 KERNELS = tuple(REPLACES)
 STEP_NAMES = ("eta_z", "eta_s", "eta_dual", "rho2")
@@ -716,7 +725,8 @@ def da_phase(rows):
 
 # the port's kernels by the names the profiler gives them
 OUR_KERNELS = ("matvec", "vecmat", "rank1", "round_mv", "round_update",
-               "round_finish", "flash_fwd", "mlstm_y", "mlstm_state")
+               "round_finish", "flash_fwd_sm90", "flash_fwd", "mlstm_y",
+               "mlstm_state")
 
 
 def profile_phase(label, spec):
@@ -775,6 +785,9 @@ FLASH_SHAPES = ((4, 1024, 1024, 32, 8, 128, 0),
                 (4, 1024, 1024, 32, 8, 128, 1024),
                 (4, 1000, 1000, 32, 8, 128, 0),
                 (1, 77, 77, 32, 32, 128, 0))
+# bf16 only: Whisper's heads and head dim (20 x 64) at 1,500 frames, run
+# causal like the others: the tensor-core kernel's hd-64 instance
+FLASH_HD64_SHAPE = (1, 1500, 1500, 20, 20, 64, 0)
 # (B, H, L, hd): xLSTM-125M's chunk first
 MLSTM_SHAPES = ((4, 4, 256, 192), (4, 4, 100, 192))
 
@@ -850,20 +863,42 @@ def mlstm_work(shape, dtype):
     return nbytes, typed / flop_rate(dtype) + f32 / F32_FLOP_PER_S
 
 
+def simt_flash(lib, o):
+    """The SIMT flash kernel called directly (uncounted) on o's causal
+    inputs: the route bf16 took before the tensor-core kernel."""
+    import math
+    import torch
+    q, k, v = o["q"], o["k"], o["v"]
+    b, s, h, hd = q.shape
+    out = torch.empty_like(q)
+    err = lib.flash_attention_simt(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, s, k.shape[1], h, k.shape[2], hd,
+        1, 0, 1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"flash_attention_simt: launch failed with error {err}")
+    return out
+
+
 def llm_kernel_phase(rows):
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels import cut_eval as K
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import mlstm_chunk as mk
     from repro_torch.kernels import ref
 
-    print("flash   dtype     B    S    T  H Hkv  hd window  max_abs_err  "
-          "ms  plain_ms  sdpa_ms  bound_ms")
+    lib = build.load()
+    print("flash   dtype    kernel               B    S    T  H Hkv  hd "
+          "window  max_abs_err  ms  plain_ms  sdpa_ms  bound_ms")
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         tol = FLASH_TOL[dname]
-        for i, shape in enumerate(FLASH_SHAPES):
+        shapes = FLASH_SHAPES + ((FLASH_HD64_SHAPE,)
+                                 if dtype == torch.bfloat16 else ())
+        for i, shape in enumerate(shapes):
             window = shape[-1]
+            name = flash.flash_route(dtype, shape[5])
             o = flash_operands(shape, dtype, seed=400 + i)
 
             def kern(o, window=window):
@@ -874,15 +909,19 @@ def llm_kernel_phase(rows):
                 return ref.flash_attention_ref(o["q"], o["k"], o["v"],
                                                causal=True, window=window)
 
+            K.reset_launches()
             got = kern(o)
+            check(dict(K.LAUNCHES) == {name: 1},
+                  f"flash_attention {dname} {shape} launched "
+                  f"{dict(K.LAUNCHES)}, expected {{{name!r}: 1}}")
             try:
                 err = close(got, plain(o), tol, tol)
             except AssertionError as e:
-                fail(f"flash_attention {dname} {shape} vs plain: {e}")
+                fail(f"{name} {dname} {shape} vs plain: {e}")
             check(torch.equal(got, kern(o)),
-                  f"flash_attention {dname} {shape} not bitwise repeatable")
-            line = (f"flash   {dname:8s} " + " ".join(str(x) for x in shape)
-                    + f"  {err:.3e}")
+                  f"{name} {dname} {shape} not bitwise repeatable")
+            line = (f"flash   {dname:8s} {name:20s} "
+                    + " ".join(str(x) for x in shape) + f"  {err:.3e}")
             if i == 0:
                 nbytes, t_ops = flash_work(shape, dtype)
                 copies = [flash_operands(shape, dtype, seed=500 + k)
@@ -903,14 +942,17 @@ def llm_kernel_phase(rows):
                 line += (f"  {ms:.4f}  {plain_ms:.4f}  {lib_ms:.4f}  "
                          f"{bound:.4f} ({bound_by}; sdpa vs plain "
                          f"{lib_err:.2e})")
-                if dtype == torch.bfloat16:
-                    rows["flash_attention"] = {
-                        "name": "flash_attention", "route": "cuda",
-                        "source": SOURCES["flash_attention"],
-                        "replaces": REPLACES["flash_attention"],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound, "bound_by": bound_by,
-                        "library_ms": lib_ms}
+                rows[name] = {
+                    "name": name, "route": "cuda", "source": SOURCES[name],
+                    "replaces": REPLACES[name], "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": bound_by, "library_ms": lib_ms}
+                if name != "flash_attention_simt":
+                    simt_ms = median_ms(
+                        lambda o: simt_flash(lib, o), copies, n_launch=4,
+                        reps=5)
+                    line += (f"; the SIMT kernel on the same inputs "
+                             f"{simt_ms:.4f} ms")
             print(line + "  (bitwise repeatable: yes)", flush=True)
 
     print("mlstm   dtype     B  H    L   hd  max_abs_err(y/c/n/m)  ms  "
@@ -1041,8 +1083,8 @@ def bf16_route_check(cfg, params, prompts, tol):
 def serve_phase(arch, kernel, per_prefill, f32_cfg, per_block=False):
     """Serve `arch` at full width on both routes; check the launches, the
     prefill logits of the two routes (bf16, then f32 on `f32_cfg`: whole
-    model, or block by block with `per_block`), and return {kernel:
-    launches}."""
+    model, or block by block with `per_block`), and return the kernel
+    route's launches of one bf16 prefill and of the f32 prefill."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_token_stream
@@ -1134,7 +1176,7 @@ def serve_phase(arch, kernel, per_prefill, f32_cfg, per_block=False):
               f"{rel32:.3e} (gate {tol})")
     del params, got, plain
     torch.cuda.empty_cache()
-    return launches
+    return launches, launches32
 
 
 def f32_depth_check(cfg, params, prompts, got, plain, tol):
@@ -1192,8 +1234,16 @@ def llama_phase(rows):
 
     cfg32 = dc.replace(get_config("llama3-8b"), dtype="float32", n_layers=2,
                        stages=uniform_stages(2, BlockSpec()))
-    launches = serve_phase("llama3-8b", "flash_attention", 32, cfg32)
+    launches, launches32 = serve_phase("llama3-8b", "flash_attention", 32,
+                                       cfg32)
+    # bf16 at hd 128 runs the tensor-core kernel only (serve_phase holds
+    # the bf16 prefill to exactly {"flash_attention": 32}); f32 the SIMT
+    check(launches32 == {"flash_attention_simt": cfg32.n_layers},
+          f"llama3-8b f32 prefill launched {launches32}, expected "
+          f"{{'flash_attention_simt': {cfg32.n_layers}}}")
     rows["flash_attention"]["launches"] = int(launches["flash_attention"])
+    rows["flash_attention_simt"]["launches"] = int(
+        launches32["flash_attention_simt"])
 
 
 def xlstm_phase(rows):
@@ -1201,8 +1251,8 @@ def xlstm_phase(rows):
     from repro_torch.configs import get_config
 
     cfg32 = dc.replace(get_config("xlstm-125m"), dtype="float32")
-    launches = serve_phase("xlstm-125m", "mlstm_chunk", 40, cfg32,
-                           per_block=True)
+    launches, _ = serve_phase("xlstm-125m", "mlstm_chunk", 40, cfg32,
+                              per_block=True)
     rows["mlstm_chunk"]["launches"] = int(launches["mlstm_chunk"])
 
 

@@ -1,7 +1,10 @@
-// Hand-written Hopper kernel for blockwise (flash) GQA attention, forward.
+// Hand-written Hopper kernel for blockwise (flash) GQA attention, forward,
+// on the CUDA cores (the "SIMT kernel").
 //
 // It replaces the Pallas TPU kernel _flash_kernel
-// (src/repro/kernels/flash_attention.py:26) and computes, for q (B,S,H,hd)
+// (src/repro/kernels/flash_attention.py:26) for f32 inputs and for bf16 at
+// head dims other than 64 and 128; bf16 at those head dims runs on the
+// tensor cores (flash_attention_sm90.cu).  It computes, for q (B,S,H,hd)
 // and k/v (B,T,Hkv,hd) in that public layout (no transposed copies):
 //
 //   out[b,s,h] = softmax_t( q[b,s,h] . k[b,t,kv] / sqrt(hd) + mask ) v[b,t,kv]
@@ -35,7 +38,9 @@
 // p v is 34 GFLOP (35 us on the tensor cores) against 84 MB of operands
 // (25 us).  This first kernel does its products with f32 FMAs on the
 // CUDA cores from shared memory (about 2.5 FMAs per shared load), so it
-// sits far above that bound; wgmma on bf16 tiles is the redesign.
+// sits far above that bound; flash_attention_sm90.cu is the wgmma
+// redesign for bf16.  In f32 the tensor cores would round to TF32 (about
+// three digits), which the f32 tolerance does not allow.
 //
 // Inputs f32 or bf16 (q, k, v of one type), f32 arithmetic throughout.
 // The launcher returns cudaGetLastError() so the caller raises on a
@@ -259,11 +264,12 @@ cudaError_t dispatch_flash(const void* q, const void* k, const void* v,
 extern "C" {
 
 // The largest head dimension the kernel takes.
-int flash_attention_max_head_dim() { return 256; }
+int flash_attention_simt_max_head_dim() { return 256; }
 
-int flash_attention(const void* q, const void* k, const void* v, void* out,
-                    int bf16, int B, int S, int Tk, int H, int Hkv, int hd,
-                    int causal, int window, float scale, void* stream) {
+int flash_attention_simt(const void* q, const void* k, const void* v,
+                         void* out, int bf16, int B, int S, int Tk, int H,
+                         int Hkv, int hd, int causal, int window,
+                         float scale, void* stream) {
   if (B < 1 || S < 1 || Tk < 1 || H < 1 || Hkv < 1 || H % Hkv != 0
       || hd < 1 || hd > 256 || window < 0) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -249,7 +249,11 @@ def _normal(rng, *shape, scale=1.0):
 @pytest.mark.parametrize("b,s,t,h,hkv,hd,window", [
     (2, 64, 64, 4, 2, 32, 0), (2, 64, 64, 4, 2, 32, 24),
     (1, 77, 77, 4, 4, 128, 0), (2, 200, 200, 8, 2, 128, 50),
-    (1, 20, 37, 2, 1, 16, 0), (1, 37, 20, 2, 1, 64, 8)])
+    (1, 20, 37, 2, 1, 16, 0), (1, 37, 20, 2, 1, 64, 8),
+    # the tensor-core kernel's instances (bf16, hd 64 / 128): S > T,
+    # ragged S, one kv head, windows (rows with no key in the window)
+    (1, 200, 77, 4, 1, 128, 0), (1, 200, 130, 4, 2, 64, 24),
+    (2, 77, 77, 8, 1, 64, 16), (1, 300, 300, 4, 1, 128, 100)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, hkv, hd,
                                             window, dtype):
@@ -259,7 +263,7 @@ def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, hkv, hd,
                .to(cuda) for n, heads in ((s, h), (t, hkv), (t, hkv)))
     kern.reset_launches()
     got = flash.flash_attention(q, k, v, causal=True, window=window)
-    assert kern.LAUNCHES["flash_attention"] == 1
+    assert dict(kern.LAUNCHES) == {flash.flash_route(dtype, hd): 1}
     assert got.dtype == dtype and got.shape == q.shape
     want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     tol = FLASH_TOL[dtype]
@@ -268,6 +272,24 @@ def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, hkv, hd,
                                atol=tol)
     assert torch.equal(got, flash.flash_attention(q, k, v, causal=True,
                                                   window=window))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_tensor_core_kernel_non_causal(cuda, hd):
+    """bf16 at hd 64 / 128 launches the tensor-core kernel, which leaves
+    non-causal inputs unmasked, as the plain version does."""
+    from repro_torch.kernels import flash_attention as flash, ref
+    rng = np.random.default_rng(hd)
+    q, k, v = (torch.tensor(_normal(rng, 2, 256, heads, hd))
+               .to(torch.bfloat16).to(cuda) for heads in (4, 2, 2))
+    kern.reset_launches()
+    got = flash.flash_attention(q, k, v, causal=False)
+    assert dict(kern.LAUNCHES) == {"flash_attention": 1}
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    tol = FLASH_TOL[torch.bfloat16]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
 
 
 def _mlstm_operands(b, h, l, hd, seed, dtype, device):
@@ -323,7 +345,7 @@ def test_kernel_route_is_taken_on_cuda_tensors(cuda):
     kern.reset_launches()
     for impl in ("naive", "chunked"):
         out, _ = attention.self_attention(p, x, pos, impl=impl, **kw)
-    assert dict(kern.LAUNCHES) == {"flash_attention": 2}
+    assert dict(kern.LAUNCHES) == {"flash_attention_simt": 2}   # f32
     want, _ = attention.self_attention(p, x, pos, kernel_impl="ref", **kw)
     np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
                                rtol=2e-3, atol=2e-3)
@@ -347,6 +369,7 @@ def test_kernel_route_is_taken_on_cuda_tensors(cuda):
                                              ("xlstm-125m", 40)])
 def test_reduced_serve_through_the_kernels(cuda, name, prompt_len):
     from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.flash_attention import flash_route
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as tfm
     cfg = reduced(get_config(name))
@@ -357,7 +380,8 @@ def test_reduced_serve_through_the_kernels(cuda, name, prompt_len):
     launches = dict(kern.LAUNCHES)
     plain = serve(cfg, 2, prompt_len, 6, params=params, impl="ref")
     if name == "llama3-8b":
-        assert launches == {"flash_attention": cfg.n_layers}
+        route = flash_route(getattr(torch, cfg.dtype), cfg.head_dim)
+        assert launches == {route: cfg.n_layers}
     else:
         assert launches == {"mlstm_chunk": 5 * 2}   # 5 mLSTM layers x 2
     np.testing.assert_array_equal(res["generated"], plain["generated"])
