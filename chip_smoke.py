@@ -14,10 +14,11 @@ file; exits non-zero, printing no result, without them.  Phases:
    main paths' shapes (white-wine (8, 242,628), domain adaptation (2,
    925,590)) and a few ragged ones, in f32 and bf16: forward values,
    first and second derivatives through the MV/VM/OUTER autograd
-   Functions, bitwise repeatability of `matvec`, and device times (CUDA
-   events around back-to-back calls on operands that together overflow
-   the L2 cache) beside the memory-rate bound, the plain version and one
-   library call.
+   Functions, one launch a `matvec` call and its bitwise repeatability,
+   and device times (CUDA events around back-to-back calls on operands
+   that together overflow the L2 cache) beside the memory-rate bound, the
+   plain version and one library call; `matvec` must be no slower than
+   `torch.mv` at both main shapes, in f32 and in bf16.
 3. The fused level-2 round kernel against its plain version at both main
    shapes, f32 and bf16: values of v_new / cv1 / s_new / gamma_new, a
    bitwise repeat, first derivatives and grad-of-grad through
@@ -44,11 +45,17 @@ file; exits non-zero, printing no result, without them.  Phases:
    Hkv 8, hd 128; windows 0 and 1024) and two ragged shapes, in bf16
    through the tensor-core kernel (plus Whisper's heads, hd 64, S = T =
    1500) and in f32 through the SIMT kernel, each launch checked against
-   `flash_route`; the mLSTM chunk kernel at xLSTM-125M's chunk (B 4, H 4,
-   L 256, hd 192) and at L = 100, with a carried state, f32 and bf16;
-   bitwise repeats, device times beside the bound, the plain version and
-   (flash only) `scaled_dot_product_attention`, a yardstick the port
-   never calls, and the SIMT kernel's time on the same bf16 inputs.
+   `flash_route`; the mLSTM chunk kernels at xLSTM-125M's chunk (B 4, H
+   4, L 256, hd 192) and at L = 100, with a carried state, in bf16
+   through the tensor-core kernel and in f32 through the SIMT kernel,
+   each launch checked against `mlstm_route`; bitwise repeats, device
+   times beside the bound, the plain version and (flash only)
+   `scaled_dot_product_attention`, a yardstick the port never calls, and
+   the SIMT kernels' times on the same bf16 inputs (the tensor-core mLSTM
+   kernel must beat its SIMT kernel there).  The tensor-core mLSTM
+   kernel's bound counts the products it runs (C and k w_k as two bf16
+   halves each, at the bf16 rate); `bound_ms_f32_qc` keeps the earlier
+   definition, q C at the f32 rate.
 8. Llama-3 8B serving at full width and depth (bf16, random weights from
    seed 0): `serve(batch=4, prompt_len=1024, gen=32)` on the kernel route
    and on the plain route; prefill logits of the two routes compared, and
@@ -57,7 +64,9 @@ file; exits non-zero, printing no result, without them.  Phases:
    kernel 32 times and the SIMT kernel never; the f32 one only the SIMT
    kernel.
 9. xLSTM-125M serving at its full config (bf16): the same, with the f32
-   run at full depth.
+   run at full depth.  The bf16 prefill launches the tensor-core mLSTM
+   kernel 40 times and the SIMT kernel never; the f32 one only the SIMT
+   kernel, 40 times.
 
 The line before the nvidia-smi line is a JSON object listing every
 ported kernel; the last line is the JSON result.
@@ -100,7 +109,8 @@ SOURCES = {"matvec": "src/repro_torch/kernels/csrc/cut_kernels.cu",
                "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
            "flash_attention_simt":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "mlstm_chunk": "src/repro_torch/kernels/csrc/mlstm_chunk.cu"}
+           "mlstm_chunk": "src/repro_torch/kernels/csrc/mlstm_chunk_sm90.cu",
+           "mlstm_chunk_simt": "src/repro_torch/kernels/csrc/mlstm_chunk.cu"}
 REPLACES = {"matvec": "src/repro/kernels/cut_eval.py:60",
             "vecmat": "src/repro/kernels/cut_eval.py:96",
             "rank1": "src/repro/kernels/cut_eval.py:129",
@@ -108,7 +118,8 @@ REPLACES = {"matvec": "src/repro/kernels/cut_eval.py:60",
             "flash_attention": "src/repro/kernels/flash_attention.py:26",
             "flash_attention_simt":
                 "src/repro/kernels/flash_attention.py:26",
-            "mlstm_chunk": "src/repro/kernels/mlstm_chunk.py:25"}
+            "mlstm_chunk": "src/repro/kernels/mlstm_chunk.py:25",
+            "mlstm_chunk_simt": "src/repro/kernels/mlstm_chunk.py:25"}
 KERNELS = tuple(REPLACES)
 STEP_NAMES = ("eta_z", "eta_s", "eta_dual", "rho2")
 
@@ -241,6 +252,7 @@ def kernel_phase():
                   lambda o: torch.outer(o["x"], o["y"])),
     }
     rows = {}
+    speed = {}
     print("kernel  dtype     P      D   max_abs_err  ms  plain_ms  "
           "library_ms  bound_ms")
     for dtype in (torch.float32, torch.bfloat16):
@@ -271,13 +283,23 @@ def kernel_phase():
                         "replaces": REPLACES[name], "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": lib_ms}
-            if (p, d) == MAIN_SHAPE:
-                once = K.matvec(o["a"], o["v"])
-                again = K.matvec(o["a"], o["v"])
-                check(torch.equal(once, again),
-                      f"matvec {dname} not bitwise repeatable")
-                print(f"matvec {dname} ({p}, {d}) bitwise repeatable: yes")
+                if name == "matvec" and (p, d) in (MAIN_SHAPE, DA_SHAPE):
+                    speed[(dname, p, d)] = (ms, lib_ms)
+            K.reset_launches()
+            once = K.matvec(o["a"], o["v"])
+            check(dict(K.LAUNCHES) == {"matvec": 1},
+                  f"matvec {dname} ({p}, {d}) launched {dict(K.LAUNCHES)}")
+            again = K.matvec(o["a"], o["v"])
+            check(torch.equal(once, again),
+                  f"matvec {dname} ({p}, {d}) not bitwise repeatable")
+            print(f"matvec {dname} ({p}, {d}): one launch a call, bitwise "
+                  "repeatable: yes")
             grads_check(o, dname, ops)
+    for (dname, p, d), (ms, lib_ms) in speed.items():
+        print(f"matvec {dname} ({p}, {d}): {ms * 1e3:.2f} us, torch.mv "
+              f"{lib_ms * 1e3:.2f} us ({lib_ms / ms:.2f}x)")
+        check(ms <= lib_ms, f"matvec {dname} ({p}, {d}): {ms * 1e3:.2f} us "
+              f"is slower than torch.mv's {lib_ms * 1e3:.2f} us")
     return rows
 
 
@@ -726,7 +748,7 @@ def da_phase(rows):
 # the port's kernels by the names the profiler gives them
 OUR_KERNELS = ("matvec", "vecmat", "rank1", "round_mv", "round_update",
                "round_finish", "flash_fwd_sm90", "flash_fwd", "mlstm_y",
-               "mlstm_state")
+               "mlstm_state", "mlstm_chunk_sm90")
 
 
 def profile_phase(label, spec):
@@ -848,17 +870,25 @@ def mlstm_operands(shape, dtype, seed):
 MLSTM_ARGS = ("q", "k", "v", "li", "lf", "c", "n", "m")
 
 
-def mlstm_work(shape, dtype):
+def mlstm_work(shape, dtype, split=False):
     """(bytes, seconds of operations): q/k/v, gates and state read once,
     y and the new state written once; q k^T and p v over the causal pairs
     and k^T v at the input type's rate, q C and q . n (C and n are f32)
-    at the f32 rate."""
+    at the f32 rate.  With `split`, the arithmetic the tensor-core kernel
+    runs: C and k w_k enter as bf16 halves hi and lo, so q C and
+    (k w_k)^T v are two bf16 products each at the bf16 rate; q . n stays
+    an f32 reduction."""
     b, h, l, hd = shape
     es = 2 if "bfloat16" in str(dtype) else 4
     bh = b * h
     nbytes = bh * (4 * l * hd * es + 2 * l * 4
                    + 2 * (hd * hd + hd + 1) * 4)
-    typed = bh * (4 * hd * l * (l + 1) // 2 + 2 * l * hd * hd + 2 * l * hd)
+    pairs = 4 * hd * l * (l + 1) // 2
+    if split:
+        typed = bh * (pairs + 2 * 2 * l * hd * hd + 2 * 2 * l * hd * hd)
+        return nbytes, (typed / BF16_FLOP_PER_S
+                        + bh * 2 * l * hd / F32_FLOP_PER_S)
+    typed = bh * (pairs + 2 * l * hd * hd + 2 * l * hd)
     f32 = bh * (2 * l * hd * hd + 2 * l * hd)
     return nbytes, typed / flop_rate(dtype) + f32 / F32_FLOP_PER_S
 
@@ -877,6 +907,23 @@ def simt_flash(lib, o):
         1, 0, 1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
     check(err == 0, f"flash_attention_simt: launch failed with error {err}")
     return out
+
+
+def simt_mlstm(lib, o):
+    """The SIMT mLSTM kernel called directly (uncounted) on o's inputs:
+    the route bf16 took before the tensor-core kernel."""
+    import math
+    import torch
+    q = o["q"]
+    b, h, l, hd = q.shape
+    y = torch.empty_like(q)
+    c2, n2, m2 = (torch.empty_like(o[k]) for k in ("c", "n", "m"))
+    err = lib.mlstm_chunk_simt(
+        *(o[k].data_ptr() for k in MLSTM_ARGS), y.data_ptr(), c2.data_ptr(),
+        n2.data_ptr(), m2.data_ptr(), int(q.dtype == torch.bfloat16), b * h,
+        l, hd, 1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"mlstm_chunk_simt: launch failed with error {err}")
+    return y, c2, n2, m2
 
 
 def llm_kernel_phase(rows):
@@ -955,12 +1002,13 @@ def llm_kernel_phase(rows):
                              f"{simt_ms:.4f} ms")
             print(line + "  (bitwise repeatable: yes)", flush=True)
 
-    print("mlstm   dtype     B  H    L   hd  max_abs_err(y/c/n/m)  ms  "
-          "plain_ms  bound_ms")
+    print("mlstm   dtype    kernel            B  H    L   hd  "
+          "max_abs_err(y/c/n/m)  ms  plain_ms  bound_ms")
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         tol = MLSTM_TOL[dname]
         for i, shape in enumerate(MLSTM_SHAPES):
+            name = mk.mlstm_route(dtype, shape[3], shape[2])
             o = mlstm_operands(shape, dtype, seed=600 + i)
 
             def kern(o):
@@ -969,17 +1017,26 @@ def llm_kernel_phase(rows):
             def plain(o):
                 return ref.mlstm_chunk_ref(*(o[k] for k in MLSTM_ARGS))
 
+            K.reset_launches()
             got = kern(o)
+            check(dict(K.LAUNCHES) == {name: 1},
+                  f"mlstm_chunk {dname} {shape} launched {dict(K.LAUNCHES)},"
+                  f" expected {{{name!r}: 1}}")
             try:
                 errs = [close(x, y, tol, tol) for x, y in zip(got, plain(o))]
             except AssertionError as e:
-                fail(f"mlstm_chunk {dname} {shape} vs plain: {e}")
+                fail(f"{name} {dname} {shape} vs plain: {e}")
             check(all(torch.equal(x, y) for x, y in zip(got, kern(o))),
-                  f"mlstm_chunk {dname} {shape} not bitwise repeatable")
-            line = (f"mlstm   {dname:8s} " + " ".join(str(x) for x in shape)
-                    + "  " + "/".join(f"{e:.2e}" for e in errs))
+                  f"{name} {dname} {shape} not bitwise repeatable")
+            line = (f"mlstm   {dname:8s} {name:16s} "
+                    + " ".join(str(x) for x in shape) + "  "
+                    + "/".join(f"{e:.2e}" for e in errs))
             if i == 0:
-                nbytes, t_ops = mlstm_work(shape, dtype)
+                # the bound of the arithmetic the routed kernel runs; for
+                # the tensor-core kernel also the earlier definition (q C
+                # at the f32 rate), which earlier measurements used
+                tc = name == "mlstm_chunk"
+                nbytes, t_ops = mlstm_work(shape, dtype, split=tc)
                 copies = [mlstm_operands(shape, dtype, seed=700 + k)
                           for k in range(max(2, -(-2 * L2_BYTES // nbytes)))]
                 ms = median_ms(kern, copies)
@@ -987,14 +1044,26 @@ def llm_kernel_phase(rows):
                 bound, bound_by = bound_of(nbytes, t_ops)
                 line += (f"  {ms:.4f}  {plain_ms:.4f}  {bound:.4f} "
                          f"({bound_by})")
-                if dtype == torch.bfloat16:
-                    rows["mlstm_chunk"] = {
-                        "name": "mlstm_chunk", "route": "cuda",
-                        "source": SOURCES["mlstm_chunk"],
-                        "replaces": REPLACES["mlstm_chunk"],
-                        "max_abs_err": max(errs), "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": bound_by, "library_ms": None}
+                rows[name] = {
+                    "name": name, "route": "cuda", "source": SOURCES[name],
+                    "replaces": REPLACES[name], "max_abs_err": max(errs),
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": bound_by, "library_ms": None}
+                if tc:
+                    f32_qc = bound_of(*mlstm_work(shape, dtype))[0]
+                    rows[name]["bound_ms_f32_qc"] = f32_qc
+                    line += f"; with q C at the f32 rate {f32_qc:.4f}"
+                if name != "mlstm_chunk_simt":
+                    simt_ms = median_ms(lambda o: simt_mlstm(lib, o), copies)
+                    simt_errs = [float((x.float() - y.float()).abs().max())
+                                 for x, y in zip(simt_mlstm(lib, o),
+                                                 plain(o))]
+                    line += (f"; the SIMT kernel on the same inputs "
+                             f"{simt_ms:.4f} ms, max_abs_err "
+                             + "/".join(f"{e:.2e}" for e in simt_errs))
+                    check(ms < simt_ms,
+                          f"{name} ({ms:.4f} ms) is not faster than the "
+                          f"SIMT kernel ({simt_ms:.4f} ms) on the same inputs")
             print(line + "  (bitwise repeatable: yes)", flush=True)
     print("  mlstm_chunk has no single library call (the chunk is a decayed "
           "attention plus a matrix-memory update): library_ms null")
@@ -1251,9 +1320,16 @@ def xlstm_phase(rows):
     from repro_torch.configs import get_config
 
     cfg32 = dc.replace(get_config("xlstm-125m"), dtype="float32")
-    launches, _ = serve_phase("xlstm-125m", "mlstm_chunk", 40, cfg32,
-                              per_block=True)
+    launches, launches32 = serve_phase("xlstm-125m", "mlstm_chunk", 40,
+                                       cfg32, per_block=True)
+    # bf16 at hd 192 runs the tensor-core kernel only (serve_phase holds
+    # the bf16 prefill to exactly {"mlstm_chunk": 40}); f32 the SIMT one
+    check(launches32 == {"mlstm_chunk_simt": 40},
+          f"xlstm-125m f32 prefill launched {launches32}, expected "
+          "{'mlstm_chunk_simt': 40}")
     rows["mlstm_chunk"]["launches"] = int(launches["mlstm_chunk"])
+    rows["mlstm_chunk_simt"]["launches"] = int(
+        launches32["mlstm_chunk_simt"])
 
 
 def main() -> None:

@@ -84,9 +84,7 @@ def _compile(out: Path) -> None:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.cut_matvec_chunk_cols.argtypes = []
-    lib.cut_matvec_chunk_cols.restype = i
-    lib.cut_matvec.argtypes = [p, i, p, i, p, p, i, ll, p]
+    lib.cut_matvec.argtypes = [p, i, p, i, p, p, p, i, ll, i, ll, p]
     lib.cut_matvec.restype = i
     for name in ("cut_vecmat", "cut_rank1"):
         fn = getattr(lib, name)
@@ -100,16 +98,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_cut_round.argtypes = [p, i, *([p] * 12), i, ll, f, f, f, f, p]
     lib.fused_cut_round.restype = i
     for name in ("flash_attention_simt_max_head_dim",
-                 "mlstm_chunk_max_head_dim",
-                 "mlstm_chunk_max_len"):
+                 "mlstm_chunk_simt_max_head_dim",
+                 "mlstm_chunk_simt_max_len"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.flash_attention_simt.argtypes = [p, p, p, p, *([i] * 9), f, p]
     lib.flash_attention_simt.restype = i
     lib.flash_attention_sm90.argtypes = [p, p, p, p, *([i] * 8), f, p]
     lib.flash_attention_sm90.restype = i
-    lib.mlstm_chunk.argtypes = [*([p] * 12), i, i, i, i, f, p]
-    lib.mlstm_chunk.restype = i
+    lib.mlstm_chunk_simt.argtypes = [*([p] * 12), i, i, i, i, f, p]
+    lib.mlstm_chunk_simt.restype = i
+    lib.mlstm_chunk_sm90.argtypes = [*([p] * 12), i, i, i, f, p]
+    lib.mlstm_chunk_sm90.restype = i
     return lib
 
 

@@ -13,38 +13,274 @@
 // once, coalesced along D, and accumulate in f32 whatever the input type.
 //
 // matvec: the TPU kernel carries its sum across a sequential grid axis,
-// which Hopper's concurrently scheduled blocks cannot do.  Pass 1 gives
-// each block one chunk of D; the block keeps up to 8 row sums in
-// registers, reduces them with warp shuffles and a fixed-order pass over
-// the warps, and writes one (P, n_chunks) f32 partial.  Pass 2 reduces
-// each row's partials in a fixed order.  No atomics: results are bitwise
-// identical run to run, which replay and resume contracts rely on.
+// which Hopper's concurrently scheduled blocks cannot do.  One launch of
+// at most two blocks per SM instead: block b owns a contiguous range of
+// D, stages its slice of v in shared memory as f32, and keeps up to 8 row
+// sums in registers while it reads A in 16-byte loads (4 f32 or 8 bf16
+// values).  Rows of A are not 16-byte aligned in general (at D = 925,590
+// row r starts r x 3,702,360 bytes in), so each row has a scalar head and
+// tail around its vector body, and v is read from shared memory at any
+// offset.  The block reduces its sums with warp shuffles and a
+// fixed-order pass over the warps into a (P, blocks) f32 partial; the
+// block that finishes last (a ticket counter: partials stored, then one
+// acq_rel atomic add) sums every row's partials in index order and
+// resets the counter.  The counter decides only which block adds, never
+// the order of the sum: results are bitwise identical run to run, which
+// replay and resume contracts rely on.  The caller keeps one zeroed
+// counter per stream, so calls on one stream never overlap on it.
 //
 // Each launcher returns cudaGetLastError() so the caller can raise on a
 // refused launch.  Kernels allocate nothing; the caller passes outputs
 // and scratch.  Built for sm_90a with the other sources of this
 // directory into one library by repro_torch/kernels/build.py.
 
+#include <cstdint>
+
 #include "cut_common.cuh"
 
 namespace {
 
-template <typename TA, typename TV>
-__global__ void __launch_bounds__(kThreads)
-matvec_partial(const TA* __restrict__ a, const TV* __restrict__ v,
-               float* __restrict__ partial, int p, long long d,
-               int n_chunks) {
-  chunk_matvec(a, [v](long long col) { return ld(v, col); }, partial, p, d,
-               n_chunks);
+constexpr int kMvCols = 4096;    // columns of v in shared memory at a time
+
+// v's slice in shared memory holds column j at pad(j): one float of
+// padding after every 32, so the lanes of a warp that read 4 (f32 A) or
+// 8 (bf16 A) consecutive columns each hit 32 different banks.
+__device__ __forceinline__ int pad(int j) { return j + (j >> 5); }
+
+// x . vs[j0 : j0 + 16 / sizeof(T)] for 16 bytes x of f32 or bf16 values.
+__device__ __forceinline__ float dot16(uint4 x, const float* vs, int j0,
+                                       const float*) {
+  return __uint_as_float(x.x) * vs[pad(j0)]
+         + __uint_as_float(x.y) * vs[pad(j0 + 1)]
+         + __uint_as_float(x.z) * vs[pad(j0 + 2)]
+         + __uint_as_float(x.w) * vs[pad(j0 + 3)];
 }
 
-// One block per cut row: the row's partials in a fixed order.
-__global__ void __launch_bounds__(kThreads)
-matvec_finish(const float* __restrict__ partial, float* __restrict__ out,
-              int n_chunks) {
-  __shared__ float red[kWarps];
-  const float t = row_total(partial, blockIdx.x, n_chunks, red);
-  if (threadIdx.x == 0) out[blockIdx.x] = t;
+__device__ __forceinline__ float dot16(uint4 x, const float* vs, int j0,
+                                       const __nv_bfloat16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    s += f.x * vs[pad(j0 + 2 * i)] + f.y * vs[pad(j0 + 2 * i + 1)];
+  }
+  return s;
+}
+
+// vs[pad(j)] = v[j] as f32 for j < len: in 16-byte loads where v is
+// 16-byte aligned (a block's slice starts at a multiple of 8 columns),
+// scalar loads for the rest.
+template <typename TV>
+__device__ __forceinline__ void stage_v(const TV* __restrict__ v, int len,
+                                        float* vs) {
+  constexpr int W = 16 / sizeof(TV);
+  int done = 0;
+  if (reinterpret_cast<uintptr_t>(v) % 16 == 0) {
+    const int n_vec = len / W;
+#pragma unroll 4
+    for (int j = threadIdx.x; j < n_vec; j += kThreads) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(v) + j);
+      if constexpr (W == 4) {
+        vs[pad(4 * j)] = __uint_as_float(raw.x);
+        vs[pad(4 * j + 1)] = __uint_as_float(raw.y);
+        vs[pad(4 * j + 2)] = __uint_as_float(raw.z);
+        vs[pad(4 * j + 3)] = __uint_as_float(raw.w);
+      } else {
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(h[i]);
+          vs[pad(8 * j + 2 * i)] = f.x;
+          vs[pad(8 * j + 2 * i + 1)] = f.y;
+        }
+      }
+    }
+    done = n_vec * W;
+  }
+  for (int j = done + threadIdx.x; j < len; j += kThreads) {
+    vs[pad(j)] = ld(v, j);
+  }
+}
+
+// The U x R 16-byte loads of A that thread-strided vector k0 starts:
+// x[u][r] is vector k0 + u kThreads of row r's body, where it has one.
+template <int R, int U, typename TA>
+__device__ __forceinline__ void mv_load(uint4 (&x)[U][R],
+                                        const TA* const (&row)[R],
+                                        const int (&body)[R],
+                                        const int (&nv)[R], int k0) {
+  constexpr int V = 16 / sizeof(TA);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k = k0 + u * kThreads;
+      if (k < nv[r]) {
+        x[u][r] = __ldg(reinterpret_cast<const uint4*>(row[r] + body[r]
+                                                       + k * V));
+      }
+    }
+  }
+}
+
+// acc[r] += A[p0 + r, s0 : s0 + len] . v[s0 : s0 + len] for the nr <= R
+// rows of this sweep.  v's slice is staged in shared memory (vs) after
+// the first loads of A are issued, so the two reads overlap.  Each row's
+// 16-byte-aligned body is read in 16-byte loads, U of each row in flight
+// per thread, and its head and tail (under 16 bytes each) in scalar
+// loads issued with the first vectors.
+template <int R, int U, typename TA, typename TV>
+__device__ __forceinline__ void mv_sweep(const TA* __restrict__ a,
+                                         const TV* __restrict__ v,
+                                         float* vs, int p0, int nr,
+                                         long long d, long long s0, int len,
+                                         float* acc) {
+  constexpr int V = 16 / sizeof(TA);
+  const TA* row[R];
+  int h[R], nv[R];
+  int n_max = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    row[r] = a + static_cast<long long>(p0 + min(r, nr - 1)) * d + s0;
+    const int mis = static_cast<int>(
+        reinterpret_cast<uintptr_t>(row[r]) % 16 / sizeof(TA));
+    h[r] = min(len, (V - mis) % V);
+    nv[r] = r < nr ? (len - h[r]) / V : 0;
+    n_max = max(n_max, nv[r]);
+  }
+  // this thread's head and tail entries of each row (under 16 bytes of a
+  // row each side of its body), loaded with the first vectors
+  const int t = threadIdx.x;
+  float head[R], tail[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int t0 = h[r] + nv[r] * V;
+    head[r] = r < nr && t < h[r] ? ld(row[r], t) : 0.f;
+    tail[r] = r < nr && t < len - t0 ? ld(row[r], t0 + t) : 0.f;
+  }
+  uint4 x[U][R];
+  int k0 = t;
+  mv_load<R, U>(x, row, h, nv, k0);
+  __syncthreads();   // the previous slice's reads of vs are done
+  stage_v(v + s0, len, vs);
+  __syncthreads();
+#pragma unroll 1
+  while (k0 < n_max) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int k = k0 + u * kThreads;
+        if (k < nv[r]) {
+          acc[r] += dot16(x[u][r], vs, h[r] + k * V,
+                          static_cast<const TA*>(nullptr));
+        }
+      }
+    }
+    k0 += kThreads * U;
+    mv_load<R, U>(x, row, h, nv, k0);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int t0 = h[r] + nv[r] * V;
+    if (t < h[r]) acc[r] += head[r] * vs[pad(t)];
+    if (t < len - t0) acc[r] += tail[r] * vs[pad(t0 + t)];
+  }
+}
+
+// Up to kRows row sums of the block, one value per thread each, reduced
+// by warp shuffles and then over the warps in order; thread r < nr
+// returns row r's total.
+__device__ __forceinline__ float rows_sum(const float* acc, int nr,
+                                          float (*red)[kRows]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float s = warp_sum(acc[r]);
+    if (lane == 0) red[warp][r] = s;
+  }
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x < nr) {
+    for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
+  }
+  __syncthreads();
+  return s;
+}
+
+// (P,) = A @ v in one launch; block b owns columns [b cw, (b + 1) cw) and
+// sweeps the rows R at a time.  Two blocks fit each SM.  The caller sizes
+// the grid (cut_eval.py _matvec_grid): at most two blocks per SM, each
+// wide enough that, in the 8-row kernel, every thread has a 16-byte load
+// of each row.
+template <int R, int U, typename TA, typename TV>
+__global__ void __launch_bounds__(kThreads, 2)
+matvec_kernel(const TA* __restrict__ a, const TV* __restrict__ v,
+              float* __restrict__ partial, int* __restrict__ ticket,
+              float* __restrict__ out, int p, long long d, long long cw) {
+  __shared__ float vs[kMvCols + kMvCols / 32];
+  __shared__ float red[kWarps][kRows];
+  __shared__ int last;
+  const int n_blocks = gridDim.x;
+  const long long c0 = static_cast<long long>(blockIdx.x) * cw;
+  const long long c1 = min(c0 + cw, d);
+  for (int p0 = 0; p0 < p; p0 += R) {
+    const int nr = min(R, p - p0);
+    float acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+    for (long long s0 = c0; s0 < c1; s0 += kMvCols) {
+      const int len = static_cast<int>(min(static_cast<long long>(kMvCols),
+                                           c1 - s0));
+      mv_sweep<R, U>(a, v, vs, p0, nr, d, s0, len, acc);
+    }
+    const float s = rows_sum(acc, nr, red);
+    if (threadIdx.x < nr) {
+      partial[static_cast<long long>(p0 + threadIdx.x) * n_blocks
+              + blockIdx.x] = s;
+    }
+  }
+  // the last block to finish sums the partials, each row in index order:
+  // after the barrier, thread 0's acq_rel ticket publishes the block's
+  // partials (cumulatively) and orders the last block's reads after
+  // every other block's
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int before;
+    asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
+                 : "=r"(before) : "l"(ticket) : "memory");
+    last = before == n_blocks - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int p0 = 0; p0 < p; p0 += kRows) {
+    const int nr = min(kRows, p - p0);
+    float acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+    // partials i and i + kThreads of every row loaded at once
+    for (int i = threadIdx.x; i < n_blocks; i += 2 * kThreads) {
+      float x[2][kRows];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const int ih = i + h * kThreads;
+          x[h][r] = r < nr && ih < n_blocks
+                        ? __ldcg(partial + static_cast<long long>(p0 + r)
+                                               * n_blocks + ih)
+                        : 0.f;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = acc[r] + x[0][r] + x[1][r];
+    }
+    const float s = rows_sum(acc, nr, red);
+    if (threadIdx.x < nr) out[p0 + threadIdx.x] = s;
+  }
+  if (threadIdx.x == 0) *ticket = 0;
 }
 
 // One thread per column, the P rows summed in order; loads of A are
@@ -85,17 +321,27 @@ unsigned grid_cols(long long d) {
   return static_cast<unsigned>(blocks < 65535 ? blocks : 65535);
 }
 
+// Rows a sweep (2 or 8: up to p) and 16-byte loads of each row in flight
+// per thread (8 loads in all).  The caller sizes the grid (blocks of cw
+// columns, cw a multiple of 8, at most two blocks per SM).
 template <typename TA, typename TV>
 cudaError_t launch_matvec(const void* a, const void* v, float* partial,
-                          float* out, int p, long long d,
-                          cudaStream_t stream) {
-  const int n_chunks = n_chunks_of(d);
-  matvec_partial<TA, TV><<<n_chunks, kThreads, 0, stream>>>(
-      static_cast<const TA*>(a), static_cast<const TV*>(v), partial, p, d,
-      n_chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  matvec_finish<<<p, kThreads, 0, stream>>>(partial, out, n_chunks);
+                          int* ticket, float* out, int p, long long d,
+                          int blocks, long long cw, cudaStream_t stream) {
+  if (blocks < 1 || cw < 8 || cw % 8 != 0
+      || static_cast<long long>(blocks - 1) * cw >= d
+      || static_cast<long long>(blocks) * cw < d) {
+    return cudaErrorInvalidValue;
+  }
+  const TA* pa = static_cast<const TA*>(a);
+  const TV* pv = static_cast<const TV*>(v);
+  if (p <= 2) {
+    matvec_kernel<2, 4><<<blocks, kThreads, 0, stream>>>(
+        pa, pv, partial, ticket, out, p, d, cw);
+  } else {
+    matvec_kernel<8, 1><<<blocks, kThreads, 0, stream>>>(
+        pa, pv, partial, ticket, out, p, d, cw);
+  }
   return cudaGetLastError();
 }
 
@@ -127,15 +373,14 @@ cudaError_t launch_rank1(const void* x, const void* y, float* out, int p,
 
 extern "C" {
 
-// Columns of D each pass-1 block reduces: the wrapper sizes the
-// (P, ceil(D / chunk)) f32 partial buffer from it.
-int cut_matvec_chunk_cols() { return kChunkCols; }
-
+// `ticket`: an int that is 0 between calls, one per stream; `partial`:
+// (p, blocks) f32 scratch.
 int cut_matvec(const void* a, int a_bf16, const void* v, int v_bf16,
-               float* partial, float* out, int p, long long d,
-               void* stream) {
+               float* partial, int* ticket, float* out, int p, long long d,
+               int blocks, long long cw, void* stream) {
   return static_cast<int>(CUT_DISPATCH(launch_matvec, a_bf16, v_bf16, a, v,
-                                       partial, out, p, d,
+                                       partial, ticket, out, p, d, blocks,
+                                       cw,
                                        static_cast<cudaStream_t>(stream)));
 }
 

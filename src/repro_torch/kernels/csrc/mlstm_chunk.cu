@@ -1,5 +1,7 @@
 // Hand-written Hopper kernel for one chunk of chunkwise-parallel mLSTM
-// (xLSTM's matrix-memory mixer).
+// (xLSTM's matrix-memory mixer), on the CUDA cores: the route of f32 and
+// of head dims the tensor-core kernel (mlstm_chunk_sm90.cu) does not
+// take (the "SIMT kernel").
 //
 // It replaces the Pallas TPU kernel _mlstm_chunk_kernel
 // (src/repro/kernels/mlstm_chunk.py:25).  Per (batch, head), for a chunk
@@ -61,41 +63,6 @@ constexpr int kRowsPer = kTR / (kThreads / kTX);   // 4 rows per thread
 constexpr int kKeysPer = kTS / kTX;                // 2 keys per thread
 constexpr int kWarps = kThreads / 32;
 
-// Inclusive cumulative sum of lf[0, L) into bcum, and li copied beside
-// it, in a fixed order: the gates are staged in shared memory by the
-// whole block, then each lane of warp 0 sums a contiguous segment and a
-// shuffle scan of the segment totals offsets the segments.  Ends with a
-// barrier.
-__device__ __forceinline__ void log_gates(const float* __restrict__ li,
-                                          const float* __restrict__ lf,
-                                          float* bcum, float* lis, int L) {
-  for (int s = threadIdx.x; s < L; s += kThreads) {
-    lis[s] = __ldg(li + s);
-    bcum[s] = __ldg(lf + s);
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const int seg = (L + 31) / 32;
-    const int lo = min(L, lane * seg);
-    const int hi = min(L, lo + seg);
-    float acc = 0.f;
-    for (int s = lo; s < hi; ++s) {
-      acc += bcum[s];
-      bcum[s] = acc;
-    }
-    float incl = acc;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float up = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += up;
-    }
-    const float offset = incl - acc;
-    for (int s = lo; s < hi; ++s) bcum[s] += offset;
-  }
-  __syncthreads();
-}
-
 size_t y_smem_floats(int L, int hd) {
   return 2 * static_cast<size_t>(L)                 // bcum, li
          + static_cast<size_t>(kTR) * (hd + 1)      // scaled q rows
@@ -138,8 +105,8 @@ mlstm_y(const T* __restrict__ q, const T* __restrict__ k,
                          * scale
                    : 0.f;
   }
-  log_gates(li + static_cast<long long>(bh) * L,
-            lf + static_cast<long long>(bh) * L, bcum, lis, L);
+  log_gates<kThreads>(li + static_cast<long long>(bh) * L,
+                      lf + static_cast<long long>(bh) * L, bcum, lis, L);
 
   // each row's stabilizer m_t and inter-chunk weight
   float m_t[kRowsPer], w_inter[kRowsPer];
@@ -329,8 +296,8 @@ mlstm_state(const T* __restrict__ k, const T* __restrict__ v,
   const long long seq = static_cast<long long>(bh) * L * hd;
   const float m_prev = m[bh];
 
-  log_gates(li + static_cast<long long>(bh) * L,
-            lf + static_cast<long long>(bh) * L, bcum, wk, L);
+  log_gates<kThreads>(li + static_cast<long long>(bh) * L,
+                      lf + static_cast<long long>(bh) * L, bcum, wk, L);
   const float btot = bcum[L - 1];
   float mx = -INFINITY;
   for (int s = tid; s < L; s += kThreads) {
@@ -450,15 +417,15 @@ extern "C" {
 
 // The largest head dimension and chunk length the kernel takes (the
 // chunk is bounded by launch 1's shared memory).
-int mlstm_chunk_max_head_dim() { return 256; }
+int mlstm_chunk_simt_max_head_dim() { return 256; }
 
-int mlstm_chunk_max_len() { return 4096; }
+int mlstm_chunk_simt_max_len() { return 4096; }
 
-int mlstm_chunk(const void* q, const void* k, const void* v, const float* li,
-                const float* lf, const float* c, const float* n,
-                const float* m, void* y, float* c_out, float* n_out,
-                float* m_out, int bf16, int BH, int L, int hd, float scale,
-                void* stream) {
+int mlstm_chunk_simt(const void* q, const void* k, const void* v,
+                     const float* li, const float* lf, const float* c,
+                     const float* n, const float* m, void* y, float* c_out,
+                     float* n_out, float* m_out, int bf16, int BH, int L,
+                     int hd, float scale, void* stream) {
   if (BH < 1 || L < 1 || L > 4096 || hd < 1 || hd > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -15,6 +15,7 @@ route: a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 
@@ -83,6 +84,35 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# matvec's ticket counters, one int32 per (device, stream), zeroed once;
+# the kernel's last block resets its counter to 0 before it ends
+_TICKETS: dict = {}
+
+
+def _ticket(t):
+    key = (t.device.index, _stream(t))
+    ticket = _TICKETS.get(key)
+    if ticket is None:
+        ticket = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+                                             device=t.device)
+    return ticket
+
+
+@functools.lru_cache(maxsize=None)
+def _matvec_grid(device_index: int, p: int, d: int, elem_size: int):
+    """(blocks, columns a block) of the one-launch matvec on this device:
+    at most two blocks per SM, each at least 512 columns wide and, for
+    more than two rows (the 8-row kernel), at least 256 threads x 16 bytes
+    of each row, so every thread has a 16-byte load (fewer, fuller blocks
+    measured faster in bf16).  The width is a multiple of 8, so every
+    block's slice of v stays 16-byte aligned."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    min_cols = 512 if p <= 2 else 256 * 16 // elem_size
+    g = min(2 * sms, max(1, -(-d // min_cols)))
+    cw = (-(-d // g) + 7) // 8 * 8
+    return -(-d // cw), cw
+
+
 def matvec(a, v):
     """a: (P, D), v: (D,) -> (P,) f32 raw contraction A @ v."""
     if a.dim() != 2 or a.shape[0] == 0 or a.shape[1] == 0:
@@ -92,14 +122,15 @@ def matvec(a, v):
     if a.device.type == "cpu":
         return matvec_ref(a, v)
     lib = build.load()
-    chunk = lib.cut_matvec_chunk_cols()
     with torch.cuda.device(a.device):
-        partial = torch.empty((p, -(-d // chunk)), dtype=torch.float32,
+        blocks, cw = _matvec_grid(a.device.index, p, d, a.element_size())
+        partial = torch.empty((p, blocks), dtype=torch.float32,
                               device=a.device)
         out = torch.empty((p,), dtype=torch.float32, device=a.device)
         _launch("matvec", lib.cut_matvec, a.data_ptr(), _bf16(a),
-                v.data_ptr(), _bf16(v), partial.data_ptr(), out.data_ptr(),
-                p, d, _stream(a))
+                v.data_ptr(), _bf16(v), partial.data_ptr(),
+                _ticket(a).data_ptr(), out.data_ptr(), p, d, blocks, cw,
+                _stream(a))
     return out
 
 

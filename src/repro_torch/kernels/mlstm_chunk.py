@@ -4,12 +4,22 @@ Counterpart of `repro/kernels/mlstm_chunk.py` (the Pallas kernel).  For
 q/k/v (B,H,L,hd) (f32 or bf16, one type), log gates li/lf (B,H,L,1) f32
 and the carried state c (B,H,hd,hd), n (B,H,1,hd), m (B,H,1,1) f32, it
 returns the chunk's y (B,H,L,hd) in q's dtype and the end-of-chunk state
-(c', n', m') in f32 (see `ref.mlstm_chunk_ref`, the plain version).
-Given CUDA tensors, `mlstm_chunk` launches the two-launch kernel of
-`csrc/mlstm_chunk.cu` on the current stream and counts the call in
-`cut_eval.LAUNCHES["mlstm_chunk"]`; given CPU tensors it runs the plain
-version.  There is no other route: a CUDA tensor launches the kernel or
-raises.
+(c', n', m') in f32 (see `ref.mlstm_chunk_ref`, the plain version).  Two
+hand-written kernels compute it, chosen by `mlstm_route` from the dtype,
+head dim and chunk length:
+
+- "mlstm_chunk": bf16 at head dims 64, 128 and 192 and chunks of at
+  most 512, on the tensor cores (`csrc/mlstm_chunk_sm90.cu`: wgmma, TMA,
+  one launch; its gates live in shared memory);
+- "mlstm_chunk_simt": everything else (f32, and bf16 at other head dims
+  or longer chunks), on the CUDA cores (`csrc/mlstm_chunk.cu`, two
+  launches).
+
+Given CUDA tensors, `mlstm_chunk` launches the routed kernel on the
+current stream and counts the call in `cut_eval.LAUNCHES` under the
+route's name; given CPU tensors it runs the plain version.  There is no
+other route and no fallback: a CUDA tensor launches the routed kernel or
+raises.  Ragged L needs no padding.
 """
 from __future__ import annotations
 
@@ -22,6 +32,18 @@ from repro_torch.kernels import cut_eval as _kern
 from repro_torch.kernels import ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# head dims of the tensor-core kernel's template instances, and the
+# longest chunk it takes (kMaxLen of csrc/mlstm_chunk_sm90.cu)
+SM90_HEAD_DIMS = (64, 128, 192)
+SM90_MAX_LEN = 512
+
+
+def mlstm_route(dtype, hd: int, l: int) -> str:
+    """The kernel that CUDA tensors of this dtype, head dim and chunk
+    length launch."""
+    if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS and l <= SM90_MAX_LEN:
+        return "mlstm_chunk"
+    return "mlstm_chunk_simt"
 
 
 def _check(q, k, v, li, lf, c, n, m):
@@ -56,16 +78,28 @@ def mlstm_chunk(q, k, v, li, lf, c, n, m):
         return ref.mlstm_chunk_ref(q, k, v, li, lf, c, n, m)
     lib = build.load()
     b, h, l, hd = q.shape
-    if hd > lib.mlstm_chunk_max_head_dim() or l > lib.mlstm_chunk_max_len():
+    name = mlstm_route(q.dtype, hd, l)
+    if name == "mlstm_chunk_simt" and (
+            hd > lib.mlstm_chunk_simt_max_head_dim()
+            or l > lib.mlstm_chunk_simt_max_len()):
         raise ValueError(f"mlstm_chunk: chunk of {l} with head dim {hd}; the "
-                         f"kernel takes at most {lib.mlstm_chunk_max_len()} "
-                         f"and {lib.mlstm_chunk_max_head_dim()}")
+                         f"{name} kernel takes at most "
+                         f"{lib.mlstm_chunk_simt_max_len()} and "
+                         f"{lib.mlstm_chunk_simt_max_head_dim()}")
     with torch.cuda.device(q.device):
         y = torch.empty_like(q)
         c2, n2, m2 = (torch.empty_like(t) for t in (c, n, m))
-        _kern._launch("mlstm_chunk", lib.mlstm_chunk,
-                      *(t.data_ptr() for t in (q, k, v, li, lf, c, n, m, y,
-                                               c2, n2, m2)),
-                      _kern._bf16(q), b * h, l, hd, 1.0 / math.sqrt(hd),
-                      _kern._stream(q))
+        ptrs = [t.data_ptr() for t in (q, k, v, li, lf, c, n, m, y, c2, n2,
+                                       m2)]
+        args = (b * h, l, hd, 1.0 / math.sqrt(hd), _kern._stream(q))
+        if name == "mlstm_chunk":
+            # TMA and the 16-byte loads of C need 16-byte-aligned addresses
+            for nm, x in (("q", q), ("k", k), ("v", v), ("c", c)):
+                if x.data_ptr() % 16:
+                    raise ValueError(f"mlstm_chunk: {nm} is not 16-byte "
+                                     "aligned")
+            _kern._launch(name, lib.mlstm_chunk_sm90, *ptrs, *args)
+        else:
+            _kern._launch(name, lib.mlstm_chunk_simt, *ptrs, _kern._bf16(q),
+                          *args)
     return y, c2, n2, m2

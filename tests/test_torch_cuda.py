@@ -43,7 +43,8 @@ def _operands(p, d, seed, dtype, device):
     return t(p, d, scale=d ** -0.5), t(d), t(p), t(d)
 
 
-@pytest.mark.parametrize("p,d", [(3, 33), (8, 57_366), (13, 5000)])
+@pytest.mark.parametrize("p,d", [(3, 33), (8, 57_366), (13, 5000), (13, 5001),
+                                 (2, 925_590), (1, 7)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain_versions(cuda, p, d, dtype):
     a, v, g, y = _operands(p, d, p, dtype, cuda)
@@ -57,6 +58,24 @@ def test_kernels_match_plain_versions(cuda, p, d, dtype):
                                    **tol)
     assert dict(kern.LAUNCHES) == {"matvec": 1, "vecmat": 1, "rank1": 1}
     assert torch.equal(kern.matvec(a, v), kern.matvec(a, v))
+
+
+def test_matvec_counter_resets_between_calls(cuda):
+    """Back-to-back calls with other P, D and an offset (unaligned) view of
+    A on one stream: the ticket counter is back at 0 after each call."""
+    a, v, _, _ = _operands(9, 100_003, 3, torch.float32, cuda)
+    b, w, _, _ = _operands(2, 4_097, 4, torch.float32, cuda)
+    flat = torch.randn(5 * 1001 + 3, device=cuda)
+    x = flat[3:].view(5, 1001)
+    u = torch.randn(1001, device=cuda)
+    kern.reset_launches()
+    for _ in range(2):
+        for m, vec in ((a, v), (b, w), (a[:4], v), (x, u)):
+            np.testing.assert_allclose(
+                kern.matvec(m, vec).cpu().numpy(),
+                kern.matvec_ref(m, vec).cpu().numpy(), **F32)
+    assert dict(kern.LAUNCHES) == {"matvec": 8}
+    assert int(kern._ticket(a).item()) == 0
 
 
 def test_mixed_operand_types(cuda):
@@ -307,14 +326,22 @@ def _mlstm_operands(b, h, l, hd, seed, dtype, device):
     return (*qkv, li, lf, c, n, m)
 
 
-@pytest.mark.parametrize("l,hd", [(8, 8), (100, 192), (256, 64), (33, 128)])
+@pytest.mark.parametrize("l,hd", [(8, 8), (100, 192), (256, 64), (33, 128),
+                                  (512, 64), (600, 192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mlstm_kernel_matches_plain_version(cuda, l, hd, dtype):
+    """f32, hd 8 and chunks past 512 launch the SIMT kernel; bf16 at hd
+    64 / 128 / 192 up to 512 the tensor-core kernel; both match the plain
+    version, ragged L included."""
     from repro_torch.kernels import mlstm_chunk as mk, ref
     args = _mlstm_operands(2, 3, l, hd, l + hd, dtype, cuda)
     kern.reset_launches()
     got = mk.mlstm_chunk(*args)
-    assert kern.LAUNCHES["mlstm_chunk"] == 1
+    route = ("mlstm_chunk" if dtype == torch.bfloat16 and hd != 8
+             and l <= 512 else "mlstm_chunk_simt")
+    assert mk.mlstm_route(dtype, hd, l) == route
+    assert dict(kern.LAUNCHES) == {route: 1}
+    assert got[0].dtype == dtype and got[0].shape == args[0].shape
     want = ref.mlstm_chunk_ref(*args)
     tol = MLSTM_TOL[dtype]
     for g, w, name in zip(got, want, ("y", "c", "n", "m")):
@@ -323,6 +350,20 @@ def test_mlstm_kernel_matches_plain_version(cuda, l, hd, dtype):
                                    atol=tol, err_msg=name)
     again = mk.mlstm_chunk(*args)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("l", [256, 100])
+def test_mlstm_tensor_core_kernel_is_bitwise_repeatable(cuda, l):
+    """xLSTM-125M's chunk (B 4, H 4, hd 192) with a carried state: the
+    tensor-core kernel gives the same bits call after call."""
+    from repro_torch.kernels import mlstm_chunk as mk
+    args = _mlstm_operands(4, 4, l, 192, l, torch.bfloat16, cuda)
+    kern.reset_launches()
+    first = mk.mlstm_chunk(*args)
+    for _ in range(3):
+        again = mk.mlstm_chunk(*args)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+    assert dict(kern.LAUNCHES) == {"mlstm_chunk": 4}
 
 
 def test_kernel_route_is_taken_on_cuda_tensors(cuda):
@@ -357,7 +398,7 @@ def test_kernel_route_is_taken_on_cuda_tensors(cuda):
           "wo": t(h, hd, d, scale=(h * hd) ** -0.5)}
     kern.reset_launches()
     y, st = xlstm.mlstm_apply(mp, x, chunk=16)          # 2 chunks of 20
-    assert dict(kern.LAUNCHES) == {"mlstm_chunk": 2}
+    assert dict(kern.LAUNCHES) == {"mlstm_chunk_simt": 2}   # f32
     y_ref, st_ref = xlstm.mlstm_apply(mp, x, chunk=16, impl="ref")
     assert sum(kern.LAUNCHES.values()) == 2
     for g, w in ((y, y_ref), *((st[k], st_ref[k]) for k in st)):
@@ -370,6 +411,7 @@ def test_kernel_route_is_taken_on_cuda_tensors(cuda):
 def test_reduced_serve_through_the_kernels(cuda, name, prompt_len):
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels.flash_attention import flash_route
+    from repro_torch.kernels.mlstm_chunk import mlstm_route
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as tfm
     cfg = reduced(get_config(name))
@@ -383,5 +425,7 @@ def test_reduced_serve_through_the_kernels(cuda, name, prompt_len):
         route = flash_route(getattr(torch, cfg.dtype), cfg.head_dim)
         assert launches == {route: cfg.n_layers}
     else:
-        assert launches == {"mlstm_chunk": 5 * 2}   # 5 mLSTM layers x 2
+        route = mlstm_route(getattr(torch, cfg.dtype), cfg.head_dim,
+                            prompt_len // 2)
+        assert launches == {route: 5 * 2}   # 5 mLSTM layers x 2 chunks
     np.testing.assert_array_equal(res["generated"], plain["generated"])
