@@ -14,16 +14,24 @@ file; exits non-zero, printing no result, without them.  Phases:
    main paths' shapes (white-wine (8, 242,628), domain adaptation (2,
    925,590)) and a few ragged ones, in f32 and bf16: forward values,
    first and second derivatives through the MV/VM/OUTER autograd
-   Functions, one launch a `matvec` call and its bitwise repeatability,
-   and device times (CUDA events around back-to-back calls on operands
-   that together overflow the L2 cache) beside the memory-rate bound, the
-   plain version and one library call; `matvec` must be no slower than
-   `torch.mv` at both main shapes, in f32 and in bf16.
+   Functions, one launch a `matvec` and a `vecmat` call and their bitwise
+   repeatability, and device times (CUDA events around back-to-back calls
+   on operands that together overflow the L2 cache) beside the
+   memory-rate bound, the plain version and one library call; `matvec`
+   must be no slower than `torch.mv` at both main shapes, in f32 and in
+   bf16, and `vecmat` no slower than `g @ A` in f32.
 3. The fused level-2 round kernel against its plain version at both main
-   shapes, f32 and bf16: values of v_new / cv1 / s_new / gamma_new, a
-   bitwise repeat, first derivatives and grad-of-grad through
-   `FusedRound`, and device times beside the bound, the plain version and
-   the three-call composition torch.mv / g @ A / torch.mv.
+   shapes, (3, 1,025) and (64, 242,628) (above what the SMs' shared
+   memory holds: A streamed), f32 and bf16: one device kernel and one
+   launch call per round under torch.profiler, the launch plan (blocks,
+   columns, A held on chip or streamed), values of v_new / cv1 / s_new /
+   gamma_new, a bitwise repeat, how many active rows take each branch of
+   s' and gamma' (at white-wine, operands from the first seed that takes
+   all four, which must occur in the kernel's result too), first
+   derivatives and grad-of-grad through `FusedRound`, and device times
+   beside the bound, the plain version and the three-call composition
+   torch.mv / g @ A / torch.mv, which the kernel must not be slower than
+   at both main shapes in f32.
 4. White-wine robust HPO (Table 1: N=6, S=4, tau=10, one 5x straggler,
    MLP 11-16-1, K=4, P=8, t_pre=10, t1=400), 120 iterations through
    `run(RunSpec(engine="scan"))` in four routes: the plain cut route and
@@ -283,24 +291,44 @@ def kernel_phase():
                         "replaces": REPLACES[name], "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": lib_ms}
-                if name == "matvec" and (p, d) in (MAIN_SHAPE, DA_SHAPE):
-                    speed[(dname, p, d)] = (ms, lib_ms)
-            K.reset_launches()
-            once = K.matvec(o["a"], o["v"])
-            check(dict(K.LAUNCHES) == {"matvec": 1},
-                  f"matvec {dname} ({p}, {d}) launched {dict(K.LAUNCHES)}")
-            again = K.matvec(o["a"], o["v"])
-            check(torch.equal(once, again),
-                  f"matvec {dname} ({p}, {d}) not bitwise repeatable")
-            print(f"matvec {dname} ({p}, {d}): one launch a call, bitwise "
-                  "repeatable: yes")
+                if (name in SPEED_GATES and dname in SPEED_GATES[name][1]
+                        and (p, d) in (MAIN_SHAPE, DA_SHAPE)):
+                    speed[(name, dname, p, d)] = (ms, lib_ms, bound)
+            for name in ("matvec", "vecmat"):
+                args = (o["a"], o["v"]) if name == "matvec" \
+                    else (o["g"], o["a"])
+                K.reset_launches()
+                once = getattr(K, name)(*args)
+                check(dict(K.LAUNCHES) == {name: 1},
+                      f"{name} {dname} ({p}, {d}) launched "
+                      f"{dict(K.LAUNCHES)}")
+                again = getattr(K, name)(*args)
+                check(torch.equal(once, again),
+                      f"{name} {dname} ({p}, {d}) not bitwise repeatable")
+                print(f"{name} {dname} ({p}, {d}): one launch a call, "
+                      "bitwise repeatable: yes")
             grads_check(o, dname, ops)
-    for (dname, p, d), (ms, lib_ms) in speed.items():
-        print(f"matvec {dname} ({p}, {d}): {ms * 1e3:.2f} us, torch.mv "
-              f"{lib_ms * 1e3:.2f} us ({lib_ms / ms:.2f}x)")
-        check(ms <= lib_ms, f"matvec {dname} ({p}, {d}): {ms * 1e3:.2f} us "
-              f"is slower than torch.mv's {lib_ms * 1e3:.2f} us")
+    speed_gates(speed)
     return rows
+
+
+# kernels that must be no slower than their library call at both main
+# shapes, in the types listed
+SPEED_GATES = {"matvec": ("torch.mv", ("float32", "bfloat16")),
+               "vecmat": ("g @ A", ("float32",)),
+               "fused_round": ("the three-call composition", ("float32",))}
+
+
+def speed_gates(speed):
+    """Print each gated kernel's time beside its bound and library call;
+    fail where the kernel is the slower."""
+    for (name, dname, p, d), (ms, lib_ms, bound) in speed.items():
+        lib = SPEED_GATES[name][0]
+        print(f"{name} {dname} ({p}, {d}): {ms * 1e3:.2f} us (bound "
+              f"{bound * 1e3:.2f} us), {lib} {lib_ms * 1e3:.2f} us "
+              f"({lib_ms / ms:.2f}x)")
+        check(ms <= lib_ms, f"{name} {dname} ({p}, {d}): {ms * 1e3:.2f} us "
+              f"is slower than {lib}'s {lib_ms * 1e3:.2f} us")
 
 
 def grads_check(o, dname, ops):
@@ -392,18 +420,70 @@ def round_work(o):
     return nbytes, 6 * p * d + 4 * d
 
 
+# above the shared memory of the 132 SMs: the kernel streams A instead
+OVER_SHAPE = (64, 242_628)
+BRANCH_SEEDS = range(200, 456)
+
+
+def round_branches(o, s_new, gamma_new):
+    """Active rows whose s' and gamma' were clamped to 0 or not:
+    (s' clamped, s' not, gamma' clamped, gamma' not)."""
+    act = o["active"] > 0
+    s0, g0 = (s_new == 0) & act, (gamma_new == 0) & act
+    return tuple(int(x.sum()) for x in (s0, act & ~s0, g0, act & ~g0))
+
+
+def branch_operands(p, d, dtype, R):
+    """The first operands from seeds BRANCH_SEEDS whose plain round takes
+    both branches of s' and of gamma' on its active rows (round_operands
+    reaches all four); fails if no seed does."""
+    for seed in BRANCH_SEEDS:
+        o = round_operands(p, d, dtype, seed)
+        out = R.fused_cut_round_ref(*(o[k] for k in ROUND_ARGS),
+                                    **FUSED_STEPS)
+        if all(round_branches(o, out[2], out[3])):
+            return o, seed
+    fail(f"fused_round ({p}, {d}) {dtype}: no seed of {BRANCH_SEEDS} takes "
+         "every branch of s' and gamma'")
+
+
+def device_launches(fn):
+    """(device kernels, runtime launch calls) of one call of fn under
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [ev.name for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA]
+    calls = [ev.name for ev in prof.events()
+             if ev.name.startswith(("cudaLaunch", "cuLaunch"))]
+    return kernels, calls
+
+
 def fused_phase(rows):
     import torch
+    from repro_torch.kernels import cut_eval as K
     from repro_torch.kernels import inner_round as R
     from repro_torch.kernels import ops
 
     print("fused   dtype     P      D   max_abs_err(v_new/cv1/s/gamma)  "
           "ms  plain_ms  3call_ms  bound_ms")
+    speed, profiled = {}, []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         rtol, atol = TOL[dname]
-        for i, (p, d) in enumerate((MAIN_SHAPE, DA_SHAPE, (3, 1_025))):
-            o = round_operands(p, d, dtype, seed=200 + i)
+        for i, (p, d) in enumerate((MAIN_SHAPE, DA_SHAPE, (3, 1_025),
+                                    OVER_SHAPE)):
+            if (p, d) == MAIN_SHAPE:
+                o, seed = branch_operands(p, d, dtype, R)
+            else:
+                o, seed = round_operands(p, d, dtype, seed=200 + i), 200 + i
             n_copies = min(16, -(-2 * L2_BYTES // round_work(o)[0]))
             copies = [round_operands(p, d, dtype, seed=300 + k)
                       for k in range(n_copies)]
@@ -431,6 +511,11 @@ def fused_phase(rows):
             again = kern(o)
             check(all(torch.equal(x, y) for x, y in zip(got, again)),
                   f"fused_round {dname} ({p}, {d}) not bitwise repeatable")
+            branches = round_branches(o, got[2], got[3])
+            if (p, d) == MAIN_SHAPE:
+                check(all(branches), f"fused_round {dname} ({p}, {d}): "
+                      f"branches {branches} miss one")
+            plan = R.plan_for(o["a"])
             ms = median_ms(kern, copies)
             plain_ms = median_ms(plain, copies)
             lib_ms = median_ms(three_calls, copies) \
@@ -441,6 +526,15 @@ def fused_phase(rows):
                   + "/".join(f"{e:.2e}" for e in errs)
                   + f"  {ms:.4f}  {plain_ms:.4f}  {lib_ms:.4f}  "
                   f"{bound:.4f}  (bitwise repeatable: yes)", flush=True)
+            print(f"  {plan.blocks} blocks of {plan.cw} columns, "
+                  f"{'A held on chip' if plan.on_chip else 'A streamed'}"
+                  f" ({plan.smem} bytes of shared memory a block); "
+                  f"operand seed {seed}: active rows with s' clamped / not "
+                  f"{branches[0]} / {branches[1]}, gamma' clamped / not "
+                  f"{branches[2]} / {branches[3]}", flush=True)
+            profiled.append((f"{dname} ({p}, {d})", o))
+            if dtype == torch.float32 and (p, d) in (MAIN_SHAPE, DA_SHAPE):
+                speed[("fused_round", dname, p, d)] = (ms, lib_ms, bound)
             if dtype == torch.float32 and (p, d) == MAIN_SHAPE:
                 rows["fused_round"] = {
                     "name": "fused_round", "route": "cuda",
@@ -448,12 +542,28 @@ def fused_phase(rows):
                     "replaces": REPLACES["fused_round"],
                     "max_abs_err": max(errs), "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": bound_by, "library_ms": None}
+                    "bound_by": bound_by, "library_ms": None,
+                    "three_call_ms": lib_ms}
                 print(f"  three-call composition torch.mv / u @ A / "
                       f"torch.mv (no single library call computes the "
                       f"round): {lib_ms:.4f} ms")
-            if (p, d) != (3, 1_025):
+            if (p, d) in (MAIN_SHAPE, DA_SHAPE):
                 round_grads_check(o, dname, R, ops)
+    speed_gates(speed)
+    # under the profiler last: it slows later host launches
+    for label, o in profiled:
+        K.reset_launches()
+        kernels, calls = device_launches(
+            lambda: R.fused_cut_round(*(o[k] for k in ROUND_ARGS),
+                                      **FUSED_STEPS))
+        check(dict(K.LAUNCHES) == {"fused_round": 1}
+              and len(kernels) == 1 and "fused_round" in kernels[0]
+              and len(calls) == 1,
+              f"fused_round {label}: one call ran {kernels} through {calls},"
+              f" counted {dict(K.LAUNCHES)}")
+        print(f"fused_round {label}, one call under torch.profiler: "
+              f"{len(kernels)} device kernel ({kernels[0][:40]}...), "
+              f"launched by {calls[0]}", flush=True)
 
 
 def round_grads_check(o, dname, R, ops):
@@ -746,9 +856,9 @@ def da_phase(rows):
 
 
 # the port's kernels by the names the profiler gives them
-OUR_KERNELS = ("matvec", "vecmat", "rank1", "round_mv", "round_update",
-               "round_finish", "flash_fwd_sm90", "flash_fwd", "mlstm_y",
-               "mlstm_state", "mlstm_chunk_sm90")
+OUR_KERNELS = ("matvec", "vecmat", "rank1", "fused_round",
+               "flash_fwd_sm90", "flash_fwd", "mlstm_y", "mlstm_state",
+               "mlstm_chunk_sm90")
 
 
 def profile_phase(label, spec):

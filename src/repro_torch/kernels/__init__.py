@@ -7,6 +7,8 @@ csrc/flash_attention_sm90.cu : the same on the tensor cores (bf16, hd 64/128)
 csrc/mlstm_chunk.cu     : one chunk of chunkwise mLSTM, CUDA cores
 csrc/mlstm_chunk_sm90.cu : the same on the tensor cores (bf16, hd 64-192)
 csrc/sm90_common.cuh    : TMA, mbarrier and wgmma helpers of the sm90 kernels
+csrc/cut_common.cuh     : loads, fixed-order sums and the ticket of the cut
+                          kernels and the fused round
 build.py                : nvcc build on first use, ctypes binding
 cut_eval.py             : cut wrappers, launch counters and plain versions
 inner_round.py          : the fused round's wrapper and plain version

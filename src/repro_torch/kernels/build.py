@@ -86,16 +86,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.cut_matvec.argtypes = [p, i, p, i, p, p, p, i, ll, i, ll, p]
     lib.cut_matvec.restype = i
-    for name in ("cut_vecmat", "cut_rank1"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, i, p, i, p, i, ll, p]
-        fn.restype = i
+    lib.cut_vecmat.argtypes = [p, i, p, i, p, i, ll, i, ll, p]
+    lib.cut_vecmat.restype = i
+    lib.cut_rank1.argtypes = [p, i, p, i, p, i, ll, p]
+    lib.cut_rank1.restype = i
     f = ctypes.c_float
-    lib.fused_cut_round_max_rows.argtypes = []
-    lib.fused_cut_round_max_rows.restype = i
-    lib.fused_cut_round_scratch.argtypes = [i, ll]
+    lib.fused_cut_round_scratch.argtypes = [i, i]
     lib.fused_cut_round_scratch.restype = ll
-    lib.fused_cut_round.argtypes = [p, i, *([p] * 12), i, ll, f, f, f, f, p]
+    lib.fused_cut_round_occupancy.argtypes = [i, i, ll]
+    lib.fused_cut_round_occupancy.restype = i
+    lib.fused_cut_round.argtypes = [p, i, *([p] * 13), i, ll, i, ll, i, ll,
+                                    f, f, f, f, p]
     lib.fused_cut_round.restype = i
     for name in ("flash_attention_simt_max_head_dim",
                  "mlstm_chunk_simt_max_head_dim",

@@ -1,7 +1,7 @@
 // Pieces shared by the cut kernels (cut_kernels.cu) and the fused
 // level-2 round (inner_round.cu): operand loads that accumulate in f32
-// whatever the input type, warp and block sums in a fixed order, and the
-// first pass of the deterministic two-pass mat-vec.
+// whatever the input type, row sums reduced in a fixed order, and the
+// ticket that elects the block which finishes a cross-block sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,8 +11,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;          // cut rows held in registers per pass
-constexpr int kChunkCols = 1024;  // columns of D per pass-1 block
+constexpr int kRows = 8;          // cut rows held in registers per sweep
 
 __device__ __forceinline__ float ld(const float* p, long long i) {
   return __ldg(p + i);
@@ -30,73 +29,66 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-// Sum of one value per thread of the block: warps by shuffles, then the
-// warps' sums in order.  Every thread returns the same bits.  `red`
-// holds kWarps floats of shared memory.
-__device__ __forceinline__ float block_sum(float s, float* red) {
-  s = warp_sum(s);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
-  __syncthreads();
-  float t = 0.f;
-  for (int w = 0; w < kWarps; ++w) t += red[w];
-  __syncthreads();
-  return t;
-}
-
-// Row r of a (P, n_chunks) partial buffer summed in a fixed order: the
-// second pass of the two-pass mat-vec.
-__device__ __forceinline__ float row_total(const float* partial, int r,
-                                           int n_chunks, float* red) {
-  const float* row = partial + static_cast<long long>(r) * n_chunks;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n_chunks; i += kThreads) s += row[i];
-  return block_sum(s, red);
-}
-
-// The first pass of A @ x for this block's chunk of D: up to kRows row
-// sums in registers per sweep, reduced by warp shuffles and a fixed-order
-// pass over the warps into partial[(row, blockIdx.x)].  `x(col)` gives
-// the vector's entry at a column of the chunk.
-template <typename TA, typename X>
-__device__ __forceinline__ void chunk_matvec(const TA* __restrict__ a, X x,
-                                             float* __restrict__ partial,
-                                             int p, long long d,
-                                             int n_chunks) {
-  __shared__ float red[kWarps][kRows];
-  const long long c0 = static_cast<long long>(blockIdx.x) * kChunkCols;
-  const long long c1 = min(c0 + kChunkCols, d);
+// Up to kRows row sums of the block, one value per thread each, reduced
+// by warp shuffles and then over the warps in order; thread r < nr
+// returns row r's total.  Every block that sums the same values gets the
+// same bits.
+__device__ __forceinline__ float rows_sum(const float* acc, int nr,
+                                          float (*red)[kRows]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int p0 = 0; p0 < p; p0 += kRows) {
-    const int nr = min(kRows, p - p0);
-    float acc[kRows];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (long long col = c0 + threadIdx.x; col < c1; col += kThreads) {
-      const float xc = x(col);
+  for (int r = 0; r < kRows; ++r) {
+    const float s = warp_sum(acc[r]);
+    if (lane == 0) red[warp][r] = s;
+  }
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x < nr) {
+    for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
+  }
+  __syncthreads();
+  return s;
+}
+
+// Totals of rows p0 .. p0 + nr - 1 of a (P, n_blocks) partial buffer
+// written by other blocks of this launch (read through L2): thread r < nr
+// returns row p0 + r's, summed in one fixed order.  Partials i and i +
+// kThreads of every row are loaded at once.
+__device__ __forceinline__ float partial_totals(const float* partial,
+                                                int p0, int nr, int n_blocks,
+                                                float (*red)[kRows]) {
+  float acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+  for (int i = threadIdx.x; i < n_blocks; i += 2 * kThreads) {
+    float x[2][kRows];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        if (r < nr) acc[r] += ld(a, (p0 + r) * d + col) * xc;
+        const int ih = i + h * kThreads;
+        x[h][r] = r < nr && ih < n_blocks
+                      ? __ldcg(partial + static_cast<long long>(p0 + r)
+                                             * n_blocks + ih)
+                      : 0.f;
       }
     }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float s = warp_sum(acc[r]);
-      if (lane == 0) red[warp][r] = s;
-    }
-    __syncthreads();
-    if (threadIdx.x < nr) {
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
-      partial[static_cast<long long>(p0 + threadIdx.x) * n_chunks
-              + blockIdx.x] = s;
-    }
-    __syncthreads();
+    for (int r = 0; r < kRows; ++r) acc[r] = acc[r] + x[0][r] + x[1][r];
   }
+  return rows_sum(acc, nr, red);
 }
 
-int n_chunks_of(long long d) {
-  return static_cast<int>((d + kChunkCols - 1) / kChunkCols);
+// One acq_rel add to a counter in device memory; returns the value
+// before.  After a __syncthreads, thread 0's add publishes the block's
+// earlier writes (cumulatively) and orders its later reads after those of
+// every block that added before it.
+__device__ __forceinline__ int ticket_add(int* counter) {
+  int before;
+  asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
+               : "=r"(before) : "l"(counter) : "memory");
+  return before;
 }
 
 }  // namespace

@@ -29,6 +29,20 @@
 // replay and resume contracts rely on.  The caller keeps one zeroed
 // counter per stream, so calls on one stream never overlap on it.
 //
+// vecmat (replaces _vecmat_kernel, cut_eval.py:96): bytes bound it on
+// this card as they bound matvec: A once, g, and the (D,) output.  On the
+// same grid as matvec (at most two blocks per SM, sized once per shape in
+// cut_eval.py), each thread owns 16 bytes of columns (4 f32 or 8 bf16)
+// and keeps one f32 sum per column in registers.  It issues the 16-byte
+// loads of 8 rows (or, at P <= 2, of 2 rows in 4 column groups) before
+// their FMAs, so 128 bytes a thread are in flight, with the rows' entries
+// of g, through the read-only path without allocating in L1, and writes
+// the output in 16-byte stores.  A row that is not
+// 16-byte aligned is read in the widest loads its alignment allows (8, 4
+// or 2 bytes; the same 16 bytes), and the slice's ragged last columns
+// one per thread.  Each column sums its rows in order r = 0 .. P-1 in
+// one thread: no atomics, bitwise repeatable.
+//
 // Each launcher returns cudaGetLastError() so the caller can raise on a
 // refused launch.  Kernels allocate nothing; the caller passes outputs
 // and scratch.  Built for sm_90a with the other sources of this
@@ -189,30 +203,9 @@ __device__ __forceinline__ void mv_sweep(const TA* __restrict__ a,
   }
 }
 
-// Up to kRows row sums of the block, one value per thread each, reduced
-// by warp shuffles and then over the warps in order; thread r < nr
-// returns row r's total.
-__device__ __forceinline__ float rows_sum(const float* acc, int nr,
-                                          float (*red)[kRows]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float s = warp_sum(acc[r]);
-    if (lane == 0) red[warp][r] = s;
-  }
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x < nr) {
-    for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
-  }
-  __syncthreads();
-  return s;
-}
-
 // (P,) = A @ v in one launch; block b owns columns [b cw, (b + 1) cw) and
 // sweeps the rows R at a time.  Two blocks fit each SM.  The caller sizes
-// the grid (cut_eval.py _matvec_grid): at most two blocks per SM, each
+// the grid (cut_eval.py cut_grid): at most two blocks per SM, each
 // wide enough that, in the 8-row kernel, every thread has a 16-byte load
 // of each row.
 template <int R, int U, typename TA, typename TV>
@@ -242,59 +235,174 @@ matvec_kernel(const TA* __restrict__ a, const TV* __restrict__ v,
               + blockIdx.x] = s;
     }
   }
-  // the last block to finish sums the partials, each row in index order:
-  // after the barrier, thread 0's acq_rel ticket publishes the block's
-  // partials (cumulatively) and orders the last block's reads after
-  // every other block's
+  // the last block to finish sums the partials, each row in index order
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int before;
-    asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
-                 : "=r"(before) : "l"(ticket) : "memory");
-    last = before == n_blocks - 1;
-  }
+  if (threadIdx.x == 0) last = ticket_add(ticket) == n_blocks - 1;
   __syncthreads();
   if (!last) return;
   for (int p0 = 0; p0 < p; p0 += kRows) {
     const int nr = min(kRows, p - p0);
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    // partials i and i + kThreads of every row loaded at once
-    for (int i = threadIdx.x; i < n_blocks; i += 2 * kThreads) {
-      float x[2][kRows];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int ih = i + h * kThreads;
-          x[h][r] = r < nr && ih < n_blocks
-                        ? __ldcg(partial + static_cast<long long>(p0 + r)
-                                               * n_blocks + ih)
-                        : 0.f;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = acc[r] + x[0][r] + x[1][r];
-    }
-    const float s = rows_sum(acc, nr, red);
+    const float s = partial_totals(partial, p0, nr, n_blocks, red);
     if (threadIdx.x < nr) out[p0 + threadIdx.x] = s;
   }
   if (threadIdx.x == 0) *ticket = 0;
 }
 
-// One thread per column, the P rows summed in order; loads of A are
-// coalesced along D.
-template <typename TG, typename TA>
-__global__ void __launch_bounds__(kThreads)
+// Loads of A that vecmat reads once: through the read-only path without
+// allocating in L1 (measured faster than __ldg on the H100).
+__device__ __forceinline__ uint4 ld_once(const uint4* p) {
+  uint4 x;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w) : "l"(p));
+  return x;
+}
+
+__device__ __forceinline__ uint2 ld_once(const uint2* p) {
+  uint2 x;
+  asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(x.x), "=r"(x.y) : "l"(p));
+  return x;
+}
+
+__device__ __forceinline__ unsigned ld_once(const unsigned* p) {
+  unsigned x;
+  asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n"
+               : "=r"(x) : "l"(p));
+  return x;
+}
+
+__device__ __forceinline__ unsigned ld_once(const unsigned short* p) {
+  unsigned short x;
+  asm volatile("ld.global.nc.L1::no_allocate.u16 %0, [%1];\n"
+               : "=h"(x) : "l"(p));
+  return x;
+}
+
+// 16 bytes of A at `p`, which lies `mis` bytes past a 16-byte boundary,
+// in the widest loads that alignment allows: one 16-byte load where the
+// row is aligned.  `mis` depends on the row only, so every branch is
+// uniform over the block.
+__device__ __forceinline__ uint4 ld16(const void* p, int mis) {
+  if (mis == 0) return ld_once(static_cast<const uint4*>(p));
+  if (mis % 8 == 0) {
+    const uint2* q = static_cast<const uint2*>(p);
+    const uint2 lo = ld_once(q);
+    const uint2 hi = ld_once(q + 1);
+    return make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
+  if (mis % 4 == 0) {
+    const unsigned* q = static_cast<const unsigned*>(p);
+    return make_uint4(ld_once(q), ld_once(q + 1), ld_once(q + 2),
+                      ld_once(q + 3));
+  }
+  const unsigned short* q = static_cast<const unsigned short*>(p);
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[i] = ld_once(q + 2 * i) | ld_once(q + 2 * i + 1) << 16;
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// acc[e] += g x[e] for 16 bytes x of f32 or bf16 values.
+__device__ __forceinline__ void axpy16(float* acc, float g, uint4 x,
+                                       const float*) {
+  acc[0] += g * __uint_as_float(x.x);
+  acc[1] += g * __uint_as_float(x.y);
+  acc[2] += g * __uint_as_float(x.z);
+  acc[3] += g * __uint_as_float(x.w);
+}
+
+__device__ __forceinline__ void axpy16(float* acc, float g, uint4 x,
+                                       const __nv_bfloat16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    acc[2 * i] += g * f.x;
+    acc[2 * i + 1] += g * f.y;
+  }
+}
+
+// (D,) = g^T A in one launch; block b owns columns [b cw, (b + 1) cw).
+// Each thread owns 16 bytes of A's columns (V = 4 f32 or 8 bf16), U of
+// them at a time, and sums the P rows in order for each column: it
+// issues the loads of R rows (each 16 bytes of each of its U column
+// groups, and the rows' entries of g, into registers) before their FMAs,
+// so the first loads of A wait on nothing.
+// A row that is not 16-byte aligned is read in narrower loads of the same
+// 16 bytes; the slice's last len % V columns are summed one per thread.
+template <int R, int U, typename TG, typename TA>
+__global__ void __launch_bounds__(kThreads, 2)
 vecmat_kernel(const TG* __restrict__ g, const TA* __restrict__ a,
-              float* __restrict__ out, int p, long long d) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long col = static_cast<long long>(blockIdx.x) * kThreads
-                       + threadIdx.x;
-       col < d; col += stride) {
+              float* __restrict__ out, int p, long long d, long long cw) {
+  constexpr int V = 16 / sizeof(TA);
+  const long long c0 = static_cast<long long>(blockIdx.x) * cw;
+  const int len = static_cast<int>(min(cw, d - c0));
+  const int n_vec = len / V;
+  const TA* slice = a + c0;
+  // row r of the slice starts ((m0 + r dm) mod V) elements past a 16-byte
+  // boundary
+  const int m0 = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(slice) / sizeof(TA)) % V);
+  const int dm = static_cast<int>(d % V);
+  for (int k0 = threadIdx.x; k0 < n_vec; k0 += kThreads * U) {
+    float acc[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[u][e] = 0.f;
+    }
+    for (int r0 = 0; r0 < p; r0 += R) {
+      uint4 x[U][R];
+      float gr[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = r0 + r;
+        if (row < p) {
+          gr[r] = ld(g, row);
+          const TA* rp = slice + static_cast<long long>(row) * d;
+          const int mis = ((m0 + row * dm) & (V - 1)) * sizeof(TA);
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int k = k0 + u * kThreads;
+            if (k < n_vec) x[u][r] = ld16(rp + k * V, mis);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r0 + r < p) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (k0 + u * kThreads < n_vec) {
+              axpy16(acc[u], gr[r], x[u][r],
+                     static_cast<const TA*>(nullptr));
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + u * kThreads;
+      if (k < n_vec) {
+        float4* o = reinterpret_cast<float4*>(out + c0 + k * V);
+#pragma unroll
+        for (int i = 0; i < V / 4; ++i) {
+          o[i] = make_float4(acc[u][4 * i], acc[u][4 * i + 1],
+                             acc[u][4 * i + 2], acc[u][4 * i + 3]);
+        }
+      }
+    }
+  }
+  const int t0 = n_vec * V;
+  if (threadIdx.x < len - t0) {
+    const long long col = c0 + t0 + threadIdx.x;
     float s = 0.f;
-    for (int r = 0; r < p; ++r) s += ld(g, r) * ld(a, r * d + col);
+    for (int r = 0; r < p; ++r) {
+      s += ld(g, r) * ld(a, r * d + col);
+    }
     out[col] = s;
   }
 }
@@ -321,6 +429,13 @@ unsigned grid_cols(long long d) {
   return static_cast<unsigned>(blocks < 65535 ? blocks : 65535);
 }
 
+// blocks of cw columns cover [0, d) exactly, cw a multiple of 8
+bool valid_grid(long long d, int blocks, long long cw) {
+  return blocks >= 1 && cw >= 8 && cw % 8 == 0
+         && static_cast<long long>(blocks - 1) * cw < d
+         && static_cast<long long>(blocks) * cw >= d;
+}
+
 // Rows a sweep (2 or 8: up to p) and 16-byte loads of each row in flight
 // per thread (8 loads in all).  The caller sizes the grid (blocks of cw
 // columns, cw a multiple of 8, at most two blocks per SM).
@@ -328,11 +443,7 @@ template <typename TA, typename TV>
 cudaError_t launch_matvec(const void* a, const void* v, float* partial,
                           int* ticket, float* out, int p, long long d,
                           int blocks, long long cw, cudaStream_t stream) {
-  if (blocks < 1 || cw < 8 || cw % 8 != 0
-      || static_cast<long long>(blocks - 1) * cw >= d
-      || static_cast<long long>(blocks) * cw < d) {
-    return cudaErrorInvalidValue;
-  }
+  if (!valid_grid(d, blocks, cw)) return cudaErrorInvalidValue;
   const TA* pa = static_cast<const TA*>(a);
   const TV* pv = static_cast<const TV*>(v);
   if (p <= 2) {
@@ -345,11 +456,25 @@ cudaError_t launch_matvec(const void* a, const void* v, float* partial,
   return cudaGetLastError();
 }
 
+// The same grid as matvec's; out 16-byte aligned (the wrapper allocates
+// it).
 template <typename TG, typename TA>
 cudaError_t launch_vecmat(const void* g, const void* a, float* out, int p,
-                          long long d, cudaStream_t stream) {
-  vecmat_kernel<TG, TA><<<grid_cols(d), kThreads, 0, stream>>>(
-      static_cast<const TG*>(g), static_cast<const TA*>(a), out, p, d);
+                          long long d, int blocks, long long cw,
+                          cudaStream_t stream) {
+  if (!valid_grid(d, blocks, cw)
+      || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const TG* pg = static_cast<const TG*>(g);
+  const TA* pa = static_cast<const TA*>(a);
+  if (p <= 2) {
+    vecmat_kernel<2, 4><<<blocks, kThreads, 0, stream>>>(pg, pa, out, p, d,
+                                                         cw);
+  } else {
+    vecmat_kernel<8, 1><<<blocks, kThreads, 0, stream>>>(pg, pa, out, p, d,
+                                                         cw);
+  }
   return cudaGetLastError();
 }
 
@@ -385,9 +510,10 @@ int cut_matvec(const void* a, int a_bf16, const void* v, int v_bf16,
 }
 
 int cut_vecmat(const void* g, int g_bf16, const void* a, int a_bf16,
-               float* out, int p, long long d, void* stream) {
+               float* out, int p, long long d, int blocks, long long cw,
+               void* stream) {
   return static_cast<int>(CUT_DISPATCH(launch_vecmat, g_bf16, a_bf16, g, a,
-                                       out, p, d,
+                                       out, p, d, blocks, cw,
                                        static_cast<cudaStream_t>(stream)));
 }
 

@@ -84,8 +84,9 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-# matvec's ticket counters, one int32 per (device, stream), zeroed once;
-# the kernel's last block resets its counter to 0 before it ends
+# ticket counters of matvec and the fused round, one int32 per (device,
+# stream), zeroed once; each kernel's last block resets it to 0 before it
+# ends, and calls on one stream never overlap
 _TICKETS: dict = {}
 
 
@@ -98,19 +99,25 @@ def _ticket(t):
     return ticket
 
 
-@functools.lru_cache(maxsize=None)
-def _matvec_grid(device_index: int, p: int, d: int, elem_size: int):
-    """(blocks, columns a block) of the one-launch matvec on this device:
-    at most two blocks per SM, each at least 512 columns wide and, for
-    more than two rows (the 8-row kernel), at least 256 threads x 16 bytes
-    of each row, so every thread has a 16-byte load (fewer, fuller blocks
-    measured faster in bf16).  The width is a multiple of 8, so every
-    block's slice of v stays 16-byte aligned."""
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+def cut_grid(p: int, d: int, elem_size: int, sms: int):
+    """(blocks, columns a block) of the one-launch matvec and vecmat on a
+    card of `sms` SMs: at most two blocks per SM, each at least 512
+    columns wide and, for more than two rows (the 8-row kernels), at
+    least 256 threads x 16 bytes of each row, so every thread has a
+    16-byte load (fewer, fuller blocks measured faster in bf16).  The
+    width is a multiple of 8, so every block's slice of a D-vector stays
+    16-byte aligned."""
     min_cols = 512 if p <= 2 else 256 * 16 // elem_size
     g = min(2 * sms, max(1, -(-d // min_cols)))
     cw = (-(-d // g) + 7) // 8 * 8
     return -(-d // cw), cw
+
+
+@functools.lru_cache(maxsize=None)
+def _cut_grid(device_index: int, p: int, d: int, elem_size: int):
+    """`cut_grid` on this device, once per (device, P, D, type)."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return cut_grid(p, d, elem_size, sms)
 
 
 def matvec(a, v):
@@ -123,7 +130,7 @@ def matvec(a, v):
         return matvec_ref(a, v)
     lib = build.load()
     with torch.cuda.device(a.device):
-        blocks, cw = _matvec_grid(a.device.index, p, d, a.element_size())
+        blocks, cw = _cut_grid(a.device.index, p, d, a.element_size())
         partial = torch.empty((p, blocks), dtype=torch.float32,
                               device=a.device)
         out = torch.empty((p,), dtype=torch.float32, device=a.device)
@@ -144,9 +151,11 @@ def vecmat(g, a):
         return vecmat_ref(g, a)
     lib = build.load()
     with torch.cuda.device(a.device):
+        blocks, cw = _cut_grid(a.device.index, p, d, a.element_size())
         out = torch.empty((d,), dtype=torch.float32, device=a.device)
         _launch("vecmat", lib.cut_vecmat, g.data_ptr(), _bf16(g),
-                a.data_ptr(), _bf16(a), out.data_ptr(), p, d, _stream(a))
+                a.data_ptr(), _bf16(a), out.data_ptr(), p, d, blocks, cw,
+                _stream(a))
     return out
 
 

@@ -15,13 +15,21 @@ s, gamma (P,):
     s'     = max(0, s - eta_s (gamma + rho2 (cv1 + s)) * active) * active
     gamma' = max(0, gamma + eta_dual (cv1 + s')) * active
 
-`fused_cut_round` given CUDA tensors launches the three-launch kernel of
-`csrc/inner_round.cu` on the current stream and counts the launch in
-`cut_eval.LAUNCHES["fused_round"]`; given CPU tensors it runs the plain
-version.  There is no other route: a CUDA tensor launches the kernel or
-raises.  The autograd Function around it is `ops.FusedRound`.
+`fused_cut_round` given CUDA tensors launches the kernel of
+`csrc/inner_round.cu` on the current stream, one cooperative launch a
+call, and counts it in `cut_eval.LAUNCHES["fused_round"]`; given CPU
+tensors it runs the plain version.  There is no other route: a CUDA
+tensor launches the kernel or raises.  `round_plan` sizes the launch once
+per (device, P, D, type): one or two blocks per SM, each owning a slice
+of D whose part of A the kernel holds in shared memory across its one
+grid-wide barrier when the slices fit (A is then read from device memory
+once), and streams from device memory when they do not.  The autograd
+Function around it is `ops.FusedRound`.
 """
 from __future__ import annotations
+
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -56,6 +64,82 @@ def fused_cut_round_ref(a, v, g_other, mask, c, active, s, gamma, *,
     return fused_round_math(_kern.matvec_ref, _kern.vecmat_ref, a,
                             v.float(), g_other.float(), mask.float(), c,
                             active, s, gamma, eta_z, eta_s, eta_dual, rho2)
+
+
+# cut rows the kernel takes (csrc/inner_round.cu kMaxRows)
+MAX_ROWS = 4096
+# mbarriers over A's rows (kMaxPieces)
+_MAX_PIECES = 32
+# a block spans at least one column per thread (256 threads)
+MIN_COLS = 256
+
+
+class RoundPlan(NamedTuple):
+    """One launch of the round: `blocks` blocks of `cw` columns (the last
+    may be narrower), A's slices held in shared memory (`on_chip`) or
+    streamed, `smem` bytes of dynamic shared memory a block."""
+    blocks: int
+    cw: int
+    on_chip: bool
+    smem: int
+
+
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def round_smem(p: int, cw: int, elem_size: int, on_chip: bool) -> int:
+    """Dynamic shared memory of a block (the kernel's `layout_of`): the
+    mbarriers and the weights w, and on chip the slices of v, g_other,
+    mask and v_new (cw + 4 floats each) and of A's P rows (cw entries and
+    16 bytes each)."""
+    rows_per_piece = -(-p // _MAX_PIECES)
+    n_pieces = -(-p // rows_per_piece)
+    w = _r16(8 * (2 + n_pieces)) if on_chip else 0
+    vec = w + _r16(4 * p)
+    if not on_chip:
+        return vec
+    return vec + 16 * (cw + 4) + p * (cw * elem_size + 16)
+
+
+def round_plan(p: int, d: int, elem_size: int, sms: int,
+               occupancy: Callable[[bool, int], int]) -> RoundPlan:
+    """The launch for A (P, D) with `elem_size`-byte entries on a card of
+    `sms` SMs, where `occupancy(on_chip, smem)` is the number of blocks
+    of that branch an SM holds with `smem` bytes (0 if none).  On chip
+    where the slices fit at two blocks per SM, else at one; else
+    streaming.  Every block's slice starts at a multiple of 8 columns, so
+    the slices of v, g_other, mask and v_new stay 16-byte aligned; the
+    cooperative launch needs every block resident at once."""
+    if not 1 <= p <= MAX_ROWS:
+        raise ValueError(f"fused_cut_round: {p} cut rows, the kernel takes "
+                         f"1 to {MAX_ROWS}")
+    for on_chip in (True, False):
+        for per_sm in (2, 1):
+            g = min(per_sm * sms, max(1, -(-d // MIN_COLS)))
+            cw = (-(-d // g) + 7) // 8 * 8
+            blocks = -(-d // cw)
+            smem = round_smem(p, cw, elem_size, on_chip)
+            if occupancy(on_chip, smem) * sms >= blocks:
+                return RoundPlan(blocks, cw, on_chip, smem)
+    raise ValueError(f"fused_cut_round: no launch of ({p}, {d}) fits the "
+                     "card")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device_index: int, p: int, d: int, elem_size: int) -> RoundPlan:
+    lib = build.load()
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    with torch.cuda.device(device_index):
+        return round_plan(
+            p, d, elem_size, sms,
+            lambda on_chip, smem: lib.fused_cut_round_occupancy(
+                int(elem_size == 2), int(on_chip), smem))
+
+
+def plan_for(a) -> RoundPlan:
+    """The launch `fused_cut_round` makes for the CUDA matrix `a`."""
+    return _plan(a.device.index, a.shape[0], a.shape[1], a.element_size())
 
 
 def _check(a, vectors, rows):
@@ -95,18 +179,18 @@ def fused_cut_round(a, v, g_other, mask, c, active, s, gamma, *,
                                    gamma, **kw)
     lib = build.load()
     p, d = a.shape
-    if p > lib.fused_cut_round_max_rows():
-        raise ValueError(f"fused_cut_round: {p} cut rows, the kernel takes "
-                         f"at most {lib.fused_cut_round_max_rows()}")
     with torch.cuda.device(a.device):
+        plan = plan_for(a)
+
         def out(n):
             return torch.empty((n,), dtype=torch.float32, device=a.device)
-        scratch = out(lib.fused_cut_round_scratch(p, d))
+        scratch = out(lib.fused_cut_round_scratch(p, plan.blocks))
         v_new, cv1, s_new, gamma_new = out(d), out(p), out(p), out(p)
         _kern._launch(
             "fused_round", lib.fused_cut_round, a.data_ptr(),
             _kern._bf16(a), *(t.data_ptr() for t in (
-                v, g_other, mask, c, active, s, gamma, scratch, v_new, cv1,
-                s_new, gamma_new)),
-            p, d, eta_z, eta_s, eta_dual, rho2, _kern._stream(a))
+                v, g_other, mask, c, active, s, gamma, scratch,
+                _kern._ticket(a), v_new, cv1, s_new, gamma_new)),
+            p, d, plan.blocks, plan.cw, int(plan.on_chip), plan.smem,
+            eta_z, eta_s, eta_dual, rho2, _kern._stream(a))
     return v_new, cv1, s_new, gamma_new

@@ -78,6 +78,24 @@ def test_matvec_counter_resets_between_calls(cuda):
     assert int(kern._ticket(a).item()) == 0
 
 
+@pytest.mark.parametrize("p,d", [(3, 33), (13, 5000), (2, 925_590)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vecmat_at_ragged_widths(cuda, p, d, dtype):
+    """One launch a call, bitwise repeatable, and right on A and on a view
+    of A that starts 3 entries into its storage (rows unaligned)."""
+    a, _, g, _ = _operands(p, d, 7, dtype, cuda)
+    flat = torch.randn(p * d + 3, device=cuda).to(dtype)
+    view = flat[3:].view(p, d)
+    tol = F32 if dtype == torch.float32 else BF16
+    for m in (a, view):
+        kern.reset_launches()
+        got = kern.vecmat(g, m)
+        assert dict(kern.LAUNCHES) == {"vecmat": 1}
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   kern.vecmat_ref(g, m).cpu().numpy(), **tol)
+        assert torch.equal(got, kern.vecmat(g, m))
+
+
 def test_mixed_operand_types(cuda):
     a, v, g, y = _operands(5, 3000, 1, torch.float32, cuda)
     for got, want in ((kern.matvec(a.bfloat16(), v), kern.matvec_ref(
@@ -166,7 +184,10 @@ ROUND_ARGS = ("a", "v", "g_other", "mask", "c", "active", "s", "gamma")
 
 
 @pytest.mark.parametrize("p,d", [(1, 7), (3, 1025), (8, 57_366),
-                                 (2, 100_000), (13, 5000)])
+                                 (2, 100_000), (13, 5000),
+                                 (8, 242_628),     # white-wine
+                                 (64, 242_628),    # above what fits on chip
+                                 (4096, 37)])      # the most rows it takes
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_round_kernel_matches_plain_version(cuda, p, d, dtype):
     o = _round_operands(p, d, p + d, dtype, cuda)
@@ -175,6 +196,7 @@ def test_fused_round_kernel_matches_plain_version(cuda, p, d, dtype):
     kern.reset_launches()
     got = inner_round.fused_cut_round(*args, **kw)
     assert dict(kern.LAUNCHES) == {"fused_round": 1}
+    assert int(kern._ticket(o["a"]).item()) == 0
     want = inner_round.fused_cut_round_ref(*args, **kw)
     tol = F32 if dtype == torch.float32 else BF16
     for x, y in zip(got, want):
@@ -183,6 +205,22 @@ def test_fused_round_kernel_matches_plain_version(cuda, p, d, dtype):
     again = inner_round.fused_cut_round(*args, **kw)
     for x, y in zip(got, again):
         assert torch.equal(x, y)
+
+
+def test_fused_round_holds_a_on_chip_where_it_fits(cuda):
+    """The main paths' A stays in shared memory; 62 MB of it is streamed,
+    in the same kernel; more than 4,096 rows are refused."""
+    for p, d, dtype, on_chip in ((8, 242_628, torch.float32, True),
+                                 (2, 925_590, torch.float32, True),
+                                 (8, 242_628, torch.bfloat16, True),
+                                 (64, 242_628, torch.float32, False)):
+        a = torch.zeros((p, d), dtype=dtype, device=cuda)
+        assert inner_round.plan_for(a).on_chip == on_chip
+    o = _round_operands(4097, 9, 1, torch.float32, cuda)
+    with pytest.raises(ValueError, match="cut rows"):
+        inner_round.fused_cut_round(
+            *(o[k] for k in ROUND_ARGS),
+            **dict(zip(("eta_z", "eta_s", "eta_dual", "rho2"), STEPS)))
 
 
 def test_fused_round_derivatives_through_the_kernels(cuda):
