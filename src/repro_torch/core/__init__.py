@@ -10,3 +10,5 @@ from repro_torch.core.runner import RunSpec, run
 from repro_torch.core.scheduler import (Schedule, StragglerConfig,
                                         StragglerScheduler)
 from repro_torch.core.stationarity import stationarity_gap_sq
+from repro_torch.core.weakly_convex import (curvature_along, estimate_mu,
+                                            first_order_gap)

@@ -32,7 +32,12 @@ from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves
 
 ENGINES = ("scan", "eager")
-_LATER = {"sweep": "the sweep engine", "async": "the async runtime"}
+# what is not ported yet, and its item in ROADMAP.md Queue 1
+_LATER = {"sweep": "the sweep engine (item 3)",
+          "async": "the async runtime (item 5)"}
+_LATER_FIELDS = {"data": "streams and replacement data (item 4)",
+                 "chunk_size": "chunked runs (item 4)",
+                 "mesh": "the worker-mesh sharded engine (item 6)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,10 +96,11 @@ def run(spec: RunSpec) -> RunResult:
     if spec.engine not in ENGINES:
         raise ValueError(f"unknown engine {spec.engine!r}; expected one "
                          f"of {ENGINES}")
-    for name in ("data", "mesh", "chunk_size"):
+    for name, what in _LATER_FIELDS.items():
         if getattr(spec, name) is not None:
             raise NotImplementedError(
-                f"RunSpec.{name}: not ported yet (ROADMAP.md Queue 1)")
+                f"RunSpec.{name}: {what} is not ported yet (ROADMAP.md "
+                "Queue 1)")
     device = resolve_device(spec.device)
     for leaf in tree_leaves((spec.problem.x1_init, spec.problem.data)):
         if leaf.device.type != device.type:

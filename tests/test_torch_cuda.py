@@ -467,3 +467,69 @@ def test_reduced_serve_through_the_kernels(cuda, name, prompt_len):
                             prompt_len // 2)
         assert launches == {route: 5 * 2}   # 5 mLSTM layers x 2 chunks
     np.testing.assert_array_equal(res["generated"], plain["generated"])
+
+
+# ---------------------------------------------------------------------------
+# the paper's evaluation
+# ---------------------------------------------------------------------------
+
+def test_fig1_on_the_card_matches_the_cpu(cuda):
+    """Fig. 1 on diabetes, 20 iterations: the same torch.Generator weights
+    on both devices; the card's rows through the cut kernels."""
+    from repro_torch.experiments import fig1_robust_hpo as fig1
+
+    want = fig1.run_dataset("diabetes", 20, device="cpu")
+    kern.reset_launches()
+    got = fig1.run_dataset("diabetes", 20, device=cuda)
+    assert kern.LAUNCHES["matvec"] > 0 and kern.LAUNCHES["vecmat"] > 0
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert (g["algo"], g["iter"], g["sim_time"]) == \
+            (w["algo"], w["iter"], w["sim_time"])
+        for k in ("mse_clean", "mse_noisy", "gap_sq"):
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=0,
+                                       err_msg=k)
+
+
+def test_baselines_on_the_card_match_the_cpu(cuda):
+    from repro_torch.apps import baselines, robust_hpo
+
+    hists = {}
+    for dev in ("cpu", cuda):
+        task = robust_hpo.make_robust_hpo_problem("diabetes", n_workers=4,
+                                                  seed=0, device=dev)
+        kern.reset_launches()
+        adbo = baselines.run_adbo(task, n_iterations=20, seed=0)
+        hists[str(dev)] = (baselines.run_fednest(task, n_iterations=20,
+                                                 seed=0)["history"],
+                           adbo["history"], dict(kern.LAUNCHES))
+    (fed_c, adbo_c, _), (fed_g, adbo_g, launches) = hists.values()
+    assert launches["matvec"] > 0 and launches["vecmat"] > 0
+    np.testing.assert_allclose(fed_g["val_mse"], fed_c["val_mse"],
+                               rtol=1e-4, atol=0)
+    np.testing.assert_allclose(adbo_g["val_mse"], adbo_c["val_mse"],
+                               rtol=1e-4, atol=0)
+    for k in ("n_cuts_i", "n_cuts_ii"):
+        assert list(adbo_g[k]) == list(adbo_c[k])
+
+
+def test_curvature_through_the_cut_kernels(cuda):
+    """Reverse over reverse through the MV kernel's autograd Function."""
+    from repro_torch.core import curvature_along, estimate_mu
+    from repro_torch.kernels import cut_ad
+
+    a, v, _, d = _operands(8, 57_366, 3, torch.float32, cuda)
+
+    def fn(a):
+        return lambda x: -torch.sum(cut_ad.MV.apply(a, x) ** 2) \
+            + torch.sum(torch.sin(x))
+
+    kern.reset_launches()
+    got = curvature_along(fn(a), v, d)
+    assert kern.LAUNCHES["matvec"] > 0 and kern.LAUNCHES["vecmat"] > 0
+    want = curvature_along(fn(a.cpu()), v.cpu(), d.cpu())
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-4,
+                               atol=1e-5)
+    mu = estimate_mu(fn(a), v, torch.Generator().manual_seed(0),
+                     n_samples=4)
+    assert float(mu) > 0

@@ -184,7 +184,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+            assert top not in ("jax", "jaxlib", "repro", "benchmarks"), \
+                (path, mod)
 
 
 def test_port_runs_with_jax_unimportable():
@@ -192,9 +193,11 @@ def test_port_runs_with_jax_unimportable():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['benchmarks'] = None\n"
         "import torch\n"
         "from repro_torch.core import Hyper, RunSpec, TrilevelProblem, run\n"
         "import repro_torch.apps.robust_hpo, repro_torch.convert\n"
+        "import repro_torch.apps.baselines, repro_torch.experiments.run\n"
         "g = torch.Generator().manual_seed(0)\n"
         "data = {'A': torch.randn(4, 3, 3, generator=g) * 0.3,\n"
         "        'b': torch.randn(4, 3, generator=g)}\n"
