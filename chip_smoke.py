@@ -77,7 +77,7 @@ file; exits non-zero, printing no result, without them.  Phases:
    kernel, 40 times.
 10. The paper's evaluation (`repro_torch.experiments`), at the reference
    scripts' settings on the kernel route, each method and seed a `scan`
-   run after the other: Fig. 1 on all four datasets (Table 1: diabetes,
+   run after the other (`engine="scan"`): Fig. 1 on all four datasets (Table 1: diabetes,
    boston and red wine N=4, S=3; white wine N=6, S=4; one 5x straggler,
    tau=10; 120 iterations, AFTO then SFTO), with diabetes again on the
    plain cut route; Fig. 2 in both directions (SVHN pretrain N=6, S=3,
@@ -92,6 +92,33 @@ file; exits non-zero, printing no result, without them.  Phases:
    history must be finite, every AFTO-loop run (ADBO's too) must launch
    `matvec` and `vecmat`, and diabetes's kernel-route histories must
    equal the plain route's within rtol 1e-4 with the cut counts exact.
+11. The sweep engine (`engine="sweep"`, R runs through one vmapped loop;
+   its kernel checks run right after phase 3, its sweeps after phase 10).
+   The batched cut kernels (`matvec_runs`, `vecmat_runs`, `rank1_runs`)
+   against their plain batched versions at white wine (R = 2 and 4) and
+   domain adaptation (R = 2), f32 and bf16: each row bitwise the
+   single-run kernel on that run, one launch a call (the count and
+   torch.profiler), a bitwise repeat, a shared operand at run stride 0;
+   device times beside R x the single-run kernel's, the bound (R x the
+   bytes) and `torch.bmm`.  vmap(grad), vmap(grad(grad)) and jvp through
+   MV and FusedRound against the plain route (grad-of-grad against
+   float64, as phase 2).  The batched fused round at white wine, R = 2
+   (A on chip) and R = 4 (streamed): its plan, values, rows bitwise the
+   single-run kernel at the batched plan, one launch, times.  Then the
+   paper's sweeps on the kernel route, each swept row held to the serial
+   `scan` run of its method and seed (histories within rtol 1e-4; cut
+   counts, sim_time and max_staleness exact; final II-layer cut rows,
+   gamma_k and inner level-2 state within 1e-4 of each tensor's largest
+   entry), with functorch's per-run fallback turned off: Fig. 1 white
+   wine (AFTO and SFTO as R = 2, against phase 10), phase 4's fused route
+   at seeds 0 and 1 (row 0 against phase 4's run), Fig. 2 MNIST pretrain
+   (against phase 10), Table 2 white wine at N = 4 (AFTO seeds 0 and 1 on
+   stacked per-seed data, 100 iterations, against serial runs) and the
+   rate check (`seeds=`, against phase 10); ms per iteration of each
+   sweep and of its serial runs, and each sweep's launches (single-run
+   kernels must not launch in a sweep).  `engine_speed.sweep_record`
+   (R = 4 white-wine runs, 30 iterations) is printed, not gated, and 20
+   swept white-wine iterations are profiled with the other profiles.
 
 The line before the nvidia-smi line is a JSON object listing every
 ported kernel; the last line is the JSON result.
@@ -146,6 +173,13 @@ REPLACES = {"matvec": "src/repro/kernels/cut_eval.py:60",
                 "src/repro/kernels/flash_attention.py:26",
             "mlstm_chunk": "src/repro/kernels/mlstm_chunk.py:25",
             "mlstm_chunk_simt": "src/repro/kernels/mlstm_chunk.py:25"}
+# the batched forms of the sweep engine (phase 11): the same TPU kernels,
+# which the reference batches by vmapping them
+BATCHED = {"matvec_runs": "matvec", "vecmat_runs": "vecmat",
+           "rank1_runs": "rank1", "fused_round_runs": "fused_round"}
+for _name, _single in BATCHED.items():
+    SOURCES[_name] = SOURCES[_single]
+    REPLACES[_name] = REPLACES[_single]
 KERNELS = tuple(REPLACES)
 STEP_NAMES = ("eta_z", "eta_s", "eta_dual", "rho2")
 
@@ -801,7 +835,13 @@ def slice_phase(rows):
                   f"{v:.2e} of the largest entry > {STATE_RTOL}")
     for name in hypers:
         print_multipliers(f"white-wine {name}", first[name][0].state)
+    PHASE4.update({name: r for name, (r, _) in first.items()})
     return {name: float(np.mean(v)) for name, v in ms.items()}, specs
+
+
+# phase 4's first result of each route, which phase 11's swept fused route
+# is held to
+PHASE4 = {}
 
 
 def hold_cudnn_f32():
@@ -1573,7 +1613,9 @@ def fig1_part():
 
     for ds, setting in fig1.SETTINGS.items():
         with metered_runs() as runs:
-            rows = fig1.run_dataset(ds, FIG1_ITERATIONS, device="cuda")
+            rows = fig1.run_dataset(ds, FIG1_ITERATIONS, engine="scan",
+                                    device="cuda")
+        PHASE10[f"fig1 {ds}"] = runs
         finals = final_rows(rows, ("mse_noisy", "mse_clean"))
         print(f"fig1 {ds} (N, S, stragglers, tau) = {setting}: accel "
               f"{fig1.speedup(rows, ds):.4f}; final noisy / clean MSE "
@@ -1584,7 +1626,8 @@ def fig1_part():
             continue
         diabetes_afto = runs[0]
         with metered_runs(plain=True) as plain:
-            fig1.run_dataset(ds, FIG1_ITERATIONS, device="cuda")
+            fig1.run_dataset(ds, FIG1_ITERATIONS, engine="scan",
+                             device="cuda")
         check_afto_runs(f"fig1 {ds} plain route", ("AFTO", "SFTO"), plain,
                         plain=True)
         for name, r, p in zip(("AFTO", "SFTO"), runs, plain):
@@ -1603,7 +1646,9 @@ def fig2_part():
     hold_cudnn_f32()
     for d, setting in fig2.SETTINGS.items():
         with metered_runs() as runs:
-            rows = fig2.run_direction(d, FIG2_ITERATIONS, device="cuda")
+            rows = fig2.run_direction(d, FIG2_ITERATIONS, engine="scan",
+                                      device="cuda")
+        PHASE10[f"fig2 {d}"] = runs
         finals = final_rows(rows, ("test_acc", "test_loss"))
         print(f"fig2 {d} (N, S, stragglers, tau) = {setting}: accel "
               f"{fig2.accel(rows):.4f}; final test accuracy / loss "
@@ -1618,7 +1663,8 @@ def table2_part():
 
     with metered_runs() as runs:
         scores = table2.score_methods("white_wine", TABLE2_ITERATIONS,
-                                      seeds=(0,), device="cuda")
+                                      seeds=(0,), device="cuda",
+                                      engine="scan")
     check_afto_runs("table2 white_wine", ("AFTO", "ADBO"), runs)
     ms = {name: ms_per_iteration(r) for name, r in zip(("AFTO", "ADBO"),
                                                        runs)}
@@ -1636,7 +1682,9 @@ def theorem_part():
     from repro_torch.experiments import comm_complexity, rate_thm45
 
     with metered_runs() as runs:
-        (_, _, derived), = rate_thm45.main(RATE_ITERATIONS, device="cuda")
+        (_, _, derived), = rate_thm45.main(RATE_ITERATIONS, device="cuda",
+                                           engine="scan")
+    PHASE10["rate_thm45"] = runs
     print(f"rate_thm45 ({RATE_ITERATIONS} iterations x 2 seeds): {derived}",
           flush=True)
     check_afto_runs("rate_thm45", ("seed 0", "seed 1"), runs)
@@ -1650,6 +1698,10 @@ def theorem_part():
     return rate_run
 
 
+# phase 10's metered runs by part, which phase 11's sweeps are held to
+PHASE10 = {}
+
+
 def paper_phase():
     t0 = time.perf_counter()
     profiled = {"fig1 diabetes AFTO, cut kernels (two refreshes)":
@@ -1661,10 +1713,487 @@ def paper_phase():
         theorem_part()
     print(f"phase 10 (the paper's evaluation): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    # under the profiler after every timed run: it slows later host
-    # launches
-    for label, run in profiled.items():
-        profile_run(label, run)
+    return profiled
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the sweep engine
+# ---------------------------------------------------------------------------
+
+# (R, P, D): white wine at two and four runs, domain adaptation at two
+SWEEP_SHAPES = ((2,) + MAIN_SHAPE, (4,) + MAIN_SHAPE, (2,) + DA_SHAPE)
+# a swept row against the serial scan run of its method and seed
+SWEEP_RTOL = 1e-4
+# Table 2's two seeds, each way; the swept-against-looped record
+TABLE2_SWEEP_ITERATIONS = 100
+SPEED_RUNS, SPEED_ITERATIONS = 4, 30
+
+
+@contextlib.contextmanager
+def no_vmap_fallback():
+    """An op without a batching rule raises under vmap, instead of
+    functorch looping over the runs one by one."""
+    import torch
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    try:
+        yield
+    finally:
+        torch._C._functorch._set_vmap_fallback_enabled(True)
+
+
+def stack_runs(trees):
+    import torch
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def batched_operands(r, p, d, dtype, seed):
+    """R runs' operands of phase 2, each run its own draw."""
+    return stack_runs([operands(p, d, dtype, seed + 1000 * k)
+                       for k in range(r)])
+
+
+def batched_calls():
+    """{name: (kernel, plain, single run r, library, shared-operand call,
+    its single run r)} of the three batched cut kernels."""
+    import torch
+    from repro_torch.kernels import cut_eval as K
+
+    def expand(x):
+        return x[0].expand(x.shape)
+
+    return {
+        "matvec_runs": (
+            lambda o: K.matvec(o["a"], o["v"]),
+            lambda o: K.matvec_ref(o["a"], o["v"]),
+            lambda o, r: K.matvec(o["a"][r], o["v"][r]),
+            lambda o: torch.bmm(o["a"], o["v"][:, :, None])[:, :, 0],
+            lambda o: K.matvec(o["a"], expand(o["v"])),
+            lambda o, r: K.matvec(o["a"][r], o["v"][0])),
+        "vecmat_runs": (
+            lambda o: K.vecmat(o["g"], o["a"]),
+            lambda o: K.vecmat_ref(o["g"], o["a"]),
+            lambda o, r: K.vecmat(o["g"][r], o["a"][r]),
+            lambda o: torch.bmm(o["g"][:, None], o["a"])[:, 0],
+            lambda o: K.vecmat(o["g"], expand(o["a"])),
+            lambda o, r: K.vecmat(o["g"][r], o["a"][0])),
+        "rank1_runs": (
+            lambda o: K.rank1(o["x"], o["y"]),
+            lambda o: K.rank1_ref(o["x"], o["y"]),
+            lambda o, r: K.rank1(o["x"][r], o["y"][r]),
+            lambda o: torch.bmm(o["x"][:, :, None], o["y"][:, None]),
+            lambda o: K.rank1(o["x"], expand(o["y"])),
+            lambda o, r: K.rank1(o["x"][r], o["y"][0])),
+    }
+
+
+def one_launch(name, fn):
+    """fn's one call launches `name` once: the count, one runtime launch
+    call under torch.profiler and at most one device kernel there.
+    CUPTI may drop a short session's only device record (phase 3), so
+    the call is profiled up to three times for it; returns the device
+    kernel's name, or what the profiler saw instead."""
+    from repro_torch.kernels import cut_eval as K
+    for _ in range(3):
+        K.reset_launches()
+        kernels, calls = device_launches(fn)
+        if kernels:
+            break
+    check(dict(K.LAUNCHES) == {name: 1} and len(kernels) <= 1
+          and len(calls) == 1,
+          f"{name}: one call ran {kernels} through {calls}, counted "
+          f"{dict(K.LAUNCHES)}")
+    return kernels[0] if kernels else \
+        f"{calls[0]}; no device record in three sessions"
+
+
+def batched_kernel_phase(rows):
+    """The batched cut kernels against their plain batched versions, each
+    row against the single-run kernel on that run (bitwise), one launch a
+    call, bitwise repeats, a shared operand at run stride 0; device times
+    beside R x the single-run kernel's, the bound and torch.bmm."""
+    import torch
+
+    print("batched  dtype     R  P      D   max_abs_err  ms  R*single_ms  "
+          "plain_ms  bmm_ms  bound_ms")
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        rtol, atol = TOL[dname]
+        for i, (r, p, d) in enumerate(SWEEP_SHAPES):
+            o = batched_operands(r, p, d, dtype, seed=i)
+            single_bytes = work("matvec", {"a": o["a"][0]})[0]
+            n_copies = min(16, -(-2 * L2_BYTES // (r * single_bytes)))
+            copies = [batched_operands(r, p, d, dtype, seed=100 + k)
+                      for k in range(n_copies)]
+            for name, (kern, plain, single, lib, shared, shared_one) in \
+                    batched_calls().items():
+                label = f"{name} {dname} ({r}, {p}, {d})"
+                out = kern(o)
+                try:
+                    err = close(out, plain(o), rtol, atol)
+                except AssertionError as e:
+                    fail(f"{label} vs plain: {e}")
+                check(all(torch.equal(out[k], single(o, k))
+                          for k in range(r)),
+                      f"{label}: a row differs from the single-run kernel")
+                check(torch.equal(out, kern(o)),
+                      f"{label} not bitwise repeatable")
+                got = shared(o)
+                check(all(torch.equal(got[k], shared_one(o, k))
+                          for k in range(r)),
+                      f"{label}: a shared operand changed a row")
+                kernel = one_launch(name, lambda: kern(o))
+                ms = median_ms(kern, copies)
+                single_ms = median_ms(lambda c: single(c, 0), copies)
+                plain_ms = median_ms(plain, copies)
+                lib_ms = median_ms(lib, copies) \
+                    if dtype == torch.float32 else None
+                nbytes, flops = work(BATCHED[name], {"a": o["a"][0]})
+                bound, bound_by = bound_of(r * nbytes,
+                                           r * flops / F32_FLOP_PER_S)
+                print(f"{name:12s} {dname:8s} {r} {p:2d} {d:7d}  "
+                      f"{err:.3e}  {ms:.4f}  {r * single_ms:.4f}  "
+                      f"{plain_ms:.4f}  "
+                      + ("-" if lib_ms is None else f"{lib_ms:.4f}")
+                      + f"  {bound:.4f}  (rows bitwise the single-run "
+                      f"kernel, shared operand at stride 0, one launch: "
+                      f"{kernel[:30]})", flush=True)
+                if dtype == torch.float32 and i == 0:
+                    rows[name] = {
+                        "name": name, "route": "cuda",
+                        "source": SOURCES[name],
+                        "replaces": REPLACES[name], "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": bound_by, "library_ms": lib_ms,
+                        "runs": r, "single_x_runs_ms": r * single_ms}
+            if dtype == torch.float32 and i in (0, 2):
+                with no_vmap_fallback():
+                    sweep_grads_check(o, f"({r}, {p}, {d})")
+    with no_vmap_fallback():
+        batched_round_phase(rows)
+
+
+def gog_error(got, want, truth):
+    """(kernel, plain) errors against float64, of its max |entry|."""
+    t = truth.detach()
+    scale = float(t.abs().max())
+    return (float((got.double() - t).abs().max()) / scale,
+            float((want.double() - t).abs().max()) / scale)
+
+
+def sweep_grads_check(o, label):
+    """vmap(grad) and vmap(grad(grad)) through MV (its backward: VM,
+    OUTER), and jvp, against the plain route (first order) and float64
+    (second order), as phase 2 holds the single-run route; only batched
+    kernels launch."""
+    import torch
+    from torch.func import grad, jvp, vmap
+    from repro_torch.kernels import cut_ad
+    from repro_torch.kernels import cut_eval as K
+
+    a, v = o["a"], o["v"]
+    p = a.shape[1]
+    c = o["g"][0].float()
+    act = (o["x"][0].float() > -0.5).float()
+    act[0] = 1.0
+    w = o["y"][0, :p].float()
+
+    def loss_of(mv):
+        return lambda a, v: 0.5 * torch.sum(w * ((mv(a, v) - c) * act) ** 2)
+
+    k_loss = loss_of(cut_ad.MV.apply)
+    p_loss = loss_of(K.matvec_ref)
+    t_loss = lambda a, v: 0.5 * torch.sum(   # noqa: E731
+        w.double() * ((a @ v - c.double()) * act.double()) ** 2)
+
+    def gog(loss):
+        return lambda a, v: grad(
+            lambda v: torch.sum(grad(loss, argnums=1)(a, v) ** 2))(v)
+
+    K.reset_launches()
+    g_k = vmap(grad(k_loss, argnums=(0, 1)))(a, v)
+    gg_k = vmap(gog(k_loss))(a, v)
+    launched = dict(K.LAUNCHES)
+    g_p = vmap(grad(p_loss, argnums=(0, 1)))(a, v)
+    gg_p = vmap(gog(p_loss))(a, v)
+    gg_t = vmap(gog(t_loss))(a.double(), v.double())
+    check(set(launched) == {"matvec_runs", "vecmat_runs", "rank1_runs"},
+          f"vmap(grad) {label} launched {launched}")
+    try:
+        errs = [close(x, y, *TOL["float32"]) for x, y in zip(g_k, g_p)]
+    except AssertionError as e:
+        fail(f"vmap(grad) through MV {label}: {e}")
+    e_k, e_p = gog_error(gg_k, gg_p, gg_t)
+    check(e_k <= 2 * e_p + GOG_FLOOR["float32"],
+          f"vmap(grad(grad)) through MV {label}: {e_k:.2e} of max |entry| "
+          f"vs the plain route's {e_p:.2e}")
+    da, dv = o["a"][1].float(), o["v"][1].float()
+    tk = jvp(lambda a, v: (cut_ad.MV.apply(a, v) - c) * act, (a[0], v[0]),
+             (da, dv))[1]
+    tp = jvp(lambda a, v: (K.matvec_ref(a, v) - c) * act, (a[0], v[0]),
+             (da, dv))[1]
+    try:
+        e_jvp = close(tk, tp, *TOL["float32"])
+    except AssertionError as e:
+        fail(f"jvp through MV {label}: {e}")
+    print(f"MV under vmap {label}: vmap(grad) max abs err vs plain da "
+          f"{errs[0]:.2e} dv {errs[1]:.2e}; vmap(grad(grad)) err vs "
+          f"float64 kernel/plain {e_k:.1e}/{e_p:.1e}; jvp {e_jvp:.2e}; "
+          f"launches {launched}", flush=True)
+
+
+def batched_round_phase(rows):
+    """The batched fused round at white wine, R = 2 (A held on chip) and
+    R = 4 (streamed): the plan, values against the plain version, each
+    row bitwise the single-run kernel at the batched plan's partition,
+    one launch, a bitwise repeat, times; vmap(grad), vmap(grad(grad))
+    and jvp through FusedRound at R = 2."""
+    import torch
+    from torch.func import grad, jvp, vmap
+    from repro_torch.kernels import inner_round as R
+    from repro_torch.kernels import ops
+
+    p, d = MAIN_SHAPE
+    rtol, atol = TOL["float32"]
+    steps = tuple(FUSED_STEPS[k] for k in STEP_NAMES)
+    for r in (2, 4):
+        def ops_of(seed):
+            return stack_runs([round_operands(p, d, torch.float32,
+                                              seed + k) for k in range(r)])
+        o = ops_of(500)
+        copies = [ops_of(600 + 10 * k) for k in range(
+            min(16, -(-2 * L2_BYTES // (r * round_work(
+                {"a": o["a"][0]})[0]))))]
+
+        def kern(o):
+            return R.fused_cut_round(*(o[k] for k in ROUND_ARGS),
+                                     **FUSED_STEPS)
+
+        def plain(o):
+            return R.fused_cut_round_ref(*(o[k] for k in ROUND_ARGS),
+                                         **FUSED_STEPS)
+
+        plan = R.plan_for(o["a"])
+
+        def single(o, k, plan=None):
+            return R.fused_cut_round(*(o[n][k] for n in ROUND_ARGS),
+                                     plan=plan, **FUSED_STEPS)
+
+        label = f"fused_round_runs float32 ({r}, {p}, {d})"
+        got = kern(o)
+        try:
+            errs = [close(x, y, rtol, atol) for x, y in zip(got, plain(o))]
+        except AssertionError as e:
+            fail(f"{label} vs plain: {e}")
+        check(all(torch.equal(x[k], y) for k in range(r)
+                  for x, y in zip(got, single(o, k, plan))),
+              f"{label}: a row differs from the single-run kernel at the "
+              "batched plan")
+        check(all(torch.equal(x, y) for x, y in zip(got, kern(o))),
+              f"{label} not bitwise repeatable")
+        kernel = one_launch("fused_round_runs", lambda: kern(o))
+        ms = median_ms(kern, copies)
+        single_ms = median_ms(lambda c: single(c, 0), copies)
+        plain_ms = median_ms(plain, copies)
+        nbytes, flops = round_work({"a": o["a"][0]})
+        bound, bound_by = bound_of(r * nbytes, r * flops / F32_FLOP_PER_S)
+        print(f"{label}: {plan.blocks} blocks a run of {plan.cw} columns,"
+              f" {'A held on chip' if plan.on_chip else 'A streamed'} "
+              f"({plan.smem} bytes of shared memory a block; one run alone:"
+              f" {R.plan_for(o['a'][0])}); max abs err "
+              + "/".join(f"{e:.2e}" for e in errs)
+              + f"; {ms:.4f} ms, R x single {r * single_ms:.4f}, plain "
+              f"{plain_ms:.4f}, bound {bound:.4f}; rows bitwise the "
+              f"single-run kernel at this plan; one launch ({kernel[:30]})",
+              flush=True)
+        if r == 2:
+            rows["fused_round_runs"] = {
+                "name": "fused_round_runs", "route": "cuda",
+                "source": SOURCES["fused_round_runs"],
+                "replaces": REPLACES["fused_round_runs"],
+                "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": None, "runs": r,
+                "single_x_runs_ms": r * single_ms}
+
+    # derivatives through FusedRound under vmap, at R = 2
+    o = stack_runs([round_operands(p, d, torch.float32, 700 + k)
+                    for k in range(2)])
+    rest = tuple(o[k] for k in ("g_other", "mask", "c", "active"))
+
+    def loss_of(round_fn):
+        def loss(a, v, s, gamma, rest):
+            outs = round_fn(a, v, rest[0], rest[1], rest[2], rest[3], s,
+                            gamma)
+            return sum(torch.sum(t ** 2) for t in outs)
+        return loss
+
+    def k_round(*xs):
+        return ops.FusedRound.apply(*xs, *steps)
+
+    def p_round(*xs):
+        return R.fused_cut_round_ref(*xs, **FUSED_STEPS)
+
+    def t_round(*xs):
+        return R.fused_round_math(lambda a, x: a @ x, lambda g, a: g @ a,
+                                  *xs, *steps)
+
+    def gog(loss):
+        return lambda a, v, s, gamma, rest: grad(
+            lambda v: sum(torch.sum(t ** 2) for t in grad(
+                loss, argnums=(0, 1))(a, v, s, gamma, rest)))(v)
+
+    wrt = tuple(o[k] for k in ("a", "v", "s", "gamma"))
+    g_k = vmap(grad(loss_of(k_round), argnums=(0, 1, 2, 3)))(*wrt, rest)
+    g_p = vmap(grad(loss_of(p_round), argnums=(0, 1, 2, 3)))(*wrt, rest)
+    try:
+        errs = [close(x, y, rtol, atol) for x, y in zip(g_k, g_p)]
+    except AssertionError as e:
+        fail(f"vmap(grad) through FusedRound: {e}")
+    gg_k = vmap(gog(loss_of(k_round)))(*wrt, rest)
+    gg_p = vmap(gog(loss_of(p_round)))(*wrt, rest)
+    gg_t = vmap(gog(loss_of(t_round)))(
+        *(x.double() for x in wrt), tuple(x.double() for x in rest))
+    e_k, e_p = gog_error(gg_k, gg_p, gg_t)
+    check(e_k <= 2 * e_p + GOG_FLOOR["float32"],
+          f"vmap(grad(grad)) through FusedRound: {e_k:.2e} of max |entry| "
+          f"vs the plain route's {e_p:.2e}")
+    ins = tuple(o[k][0] for k in ROUND_ARGS)
+    tans = tuple(o[k][1] if k in ("a", "v", "g_other", "s", "gamma")
+                 else torch.zeros_like(o[k][1]) for k in ROUND_ARGS)
+    tk = jvp(k_round, ins, tans)[1]
+    tp = jvp(p_round, ins, tans)[1]
+    try:
+        e_jvp = [close(x, y, rtol, atol) for x, y in zip(tk, tp)]
+    except AssertionError as e:
+        fail(f"jvp through FusedRound: {e}")
+    print("FusedRound under vmap (2, 8, 242628): vmap(grad) max abs err vs"
+          " plain " + " ".join(f"{e:.2e}" for e in errs)
+          + f"; vmap(grad(grad)) err vs float64 kernel/plain {e_k:.1e}/"
+          f"{e_p:.1e}; jvp " + " ".join(f"{e:.2e}" for e in e_jvp),
+          flush=True)
+
+
+def check_sweep_rows(label, swept, serial):
+    """Each row of a metered sweep against the serial scan run of its
+    method and seed: histories within rtol 1e-4, cut counts, sim_time
+    and max_staleness exact, the final II-layer cut rows, gamma_k and
+    inner level-2 state within 1e-4 of each tensor's largest entry."""
+    res = swept["result"]
+    check(res.n_runs == len(serial),
+          f"{label}: {res.n_runs} swept runs, {len(serial)} serial")
+    keys = [k for k in res.history if k not in (
+        "t", "sim_time", "max_staleness", "host_time", "n_cuts_i",
+        "n_cuts_ii")]
+    worst = (0.0, "")
+    for r, one in enumerate(serial):
+        row, ref = res.run(r), one["result"]
+        compare_routes(f"{label} row {r} vs serial", row.history,
+                       ref.history, keys, SWEEP_RTOL)
+        for k in ("sim_time", "max_staleness", "t"):
+            check(list(row.history[k]) == list(ref.history[k]),
+                  f"{label} row {r}: {k} differs from the serial run")
+        diffs = final_state_diffs(row.state, ref.state)
+        for k, v in diffs.items():
+            check(v <= STATE_RTOL, f"{label} row {r} final {k}: {v:.2e} "
+                  f"of the largest entry > {STATE_RTOL}")
+        worst = max([worst, *((v, f"row {r} {k}")
+                               for k, v in diffs.items())])
+    got = swept["launches"]
+    serial_ms = sum(one["seconds"] for one in serial) \
+        / swept["iterations"] * 1e3
+    print(f"  {label}: sweep of {res.n_runs} {ms_per_iteration(swept):.3f} "
+          f"ms/iteration, serial runs {serial_ms:.3f} ms/iteration in all "
+          "(nan: a run timed in an earlier phase); "
+          "sweep launches " + ", ".join(
+              f"{k} {v}" for k, v in sorted(got.items()))
+          + f"; final state within {worst[0]:.2e} of the serial runs' "
+          f"(largest: {worst[1]})", flush=True)
+    for k in ("matvec", "vecmat", "rank1", "fused_round"):
+        check(got.get(k, 0) == 0,
+              f"{label}: the sweep launched the single-run {k}")
+    for k in ("matvec_runs", "vecmat_runs"):
+        check(got.get(k, 0) > 0, f"{label}: {k} never launched")
+
+
+def swept_paper_runs(rows, ww_specs):
+    """The paper's sweeps on the kernel route, each row held to phase 10's
+    serial scan run (or phase 4's) of the same method and seed; the
+    batched kernels' launches on them; returns the metered white-wine
+    Fig. 1 sweep."""
+    from repro_torch.apps.robust_hpo import make_robust_hpo_problem
+    from repro_torch.core import runner
+    from repro_torch.experiments import fig1_robust_hpo as fig1
+    from repro_torch.experiments import fig2_domain_adapt as fig2
+    from repro_torch.experiments import rate_thm45
+    from repro_torch.experiments import table2_baselines as table2
+
+    with metered_runs() as runs:
+        fig1.run_dataset("white_wine", FIG1_ITERATIONS, device="cuda")
+    ww_sweep = runs[0]
+    check_sweep_rows("fig1 white_wine AFTO+SFTO", ww_sweep,
+                     PHASE10["fig1 white_wine"])
+    for name in ("matvec_runs", "vecmat_runs", "rank1_runs"):
+        rows[name]["launches"] = int(ww_sweep["launches"].get(name, 0))
+
+    # phase 4's fused route, its seed and the next as one sweep
+    spec = ww_specs["fused"]
+    with metered_runs() as runs:
+        runner.run(dataclasses.replace(spec, engine="sweep", seeds=(0, 1)))
+    with metered_runs() as serial:
+        runner.run(dataclasses.replace(spec, scheduler=dataclasses.replace(
+            spec.scheduler, seed=1)))
+    check_sweep_rows("white-wine fused route, seeds 0 and 1", runs[0],
+                     [{"result": PHASE4["fused"], "seconds": float("nan")},
+                      serial[0]])
+    check(runs[0]["launches"].get("fused_round_runs", 0) > 0,
+          "fused_round_runs never launched on the swept fused route")
+    rows["fused_round_runs"]["launches"] = int(
+        runs[0]["launches"]["fused_round_runs"])
+
+    hold_cudnn_f32()
+    with metered_runs() as runs:
+        fig2.run_direction("mnist_pretrain", FIG2_ITERATIONS, device="cuda")
+    check_sweep_rows("fig2 mnist_pretrain AFTO+SFTO", runs[0],
+                     PHASE10["fig2 mnist_pretrain"])
+
+    tasks = [make_robust_hpo_problem("white_wine", n_workers=4, seed=s,
+                                     device="cuda") for s in (0, 1)]
+    with metered_runs() as serial:
+        table2.run_afto_seeds(tasks, 4, TABLE2_SWEEP_ITERATIONS, (0, 1))
+    with metered_runs() as runs:
+        table2.run_afto_swept(tasks, 4, TABLE2_SWEEP_ITERATIONS, (0, 1))
+    check_sweep_rows("table2 white_wine N=4 AFTO seeds 0 and 1 (stacked "
+                     "per-seed data)", runs[0], serial)
+
+    with metered_runs() as runs:
+        (_, _, derived), = rate_thm45.main(RATE_ITERATIONS, device="cuda")
+    print(f"  rate_thm45 swept (seeds=(0, 1)): {derived}", flush=True)
+    check_sweep_rows("rate_thm45 seeds 0 and 1", runs[0],
+                     PHASE10["rate_thm45"])
+    return ww_sweep
+
+
+def sweep_phase(rows, ww_specs):
+    """Phase 11's sweeps, with no per-run fallback, and the sweep against
+    a loop of single runs; returns the spec of a white-wine sweep to
+    profile."""
+    from repro_torch.core import StragglerConfig
+    from repro_torch.experiments import engine_speed
+
+    t0 = time.perf_counter()
+    with no_vmap_fallback():
+        ww_sweep = swept_paper_runs(rows, ww_specs)
+        record = engine_speed.sweep_record(SPEED_ITERATIONS, SPEED_RUNS,
+                                           reps=1, device="cuda")
+    print(f"  engine_speed.sweep_record (white wine, R = {SPEED_RUNS}, "
+          f"{SPEED_ITERATIONS} iterations, not gated): "
+          f"{json.dumps(record['sweep'])}", flush=True)
+    print(f"phase 11 (the sweep engine): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return dataclasses.replace(
+        ww_sweep["spec"], schedules=None, seeds=(0, 1), sweep_hypers=None,
+        scheduler=StragglerConfig(n_workers=6, s_active=4, tau=10,
+                                  n_stragglers=1, seed=0))
 
 
 def main() -> None:
@@ -1679,6 +2208,9 @@ def main() -> None:
     smi = environment()
     rows = kernel_phase()
     fused_phase(rows)
+    # phase 11's kernel checks, beside phases 2 and 3 (its sweeps need
+    # phases 4 and 10 first)
+    batched_kernel_phase(rows)
     ww_ms, ww_specs = slice_phase(rows)
     da_ms, da_launches, da_spec = da_phase(rows)
     profile_phase("white-wine, cut kernels (two refreshes)",
@@ -1689,7 +2221,14 @@ def main() -> None:
     llm_kernel_phase(rows)
     llama_phase(rows)
     xlstm_phase(rows)
-    paper_phase()
+    profiled = paper_phase()
+    sweep_spec = sweep_phase(rows, ww_specs)
+    # under the profiler after every timed run: it slows later host
+    # launches
+    for label, run in profiled.items():
+        profile_run(label, run)
+    profile_phase("white-wine sweep of 2 (AFTO, seeds 0 and 1), batched "
+                  "cut kernels (two refreshes)", sweep_spec)
     print("ms/iteration, mean of two runs per route: white-wine "
           + ", ".join(f"{k} {v:.3f}" for k, v in ww_ms.items())
           + "; domain adaptation "

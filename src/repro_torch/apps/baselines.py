@@ -27,8 +27,8 @@ from repro_torch.apps.robust_hpo import RobustHPOTask, default_hyper
 from repro_torch.core import runner
 from repro_torch.core.scheduler import StragglerConfig, StragglerScheduler
 from repro_torch.models.simple import mlp_apply, smoothed_l1
-from repro_torch.utils.tree import (grad_point, tree_axpy, tree_grad,
-                                    tree_leaves, tree_map)
+from repro_torch.utils import tree as tree_lib
+from repro_torch.utils.tree import tree_axpy, tree_leaves, tree_map
 
 
 def _val_mse(w, d_j):
@@ -54,14 +54,13 @@ def run_fednest(task: RobustHPOTask, n_iterations: int = 200,
 
     def local_inner(w, phi):
         """inner_steps of local SGD on the regularized train loss per
-        worker, then FedAvg; every step keeps its graph, so the result
-        can be differentiated w.r.t. phi through the updates."""
+        worker, then FedAvg; differentiable w.r.t. phi through the
+        updates."""
         ws = []
         for d_j in workers:
             w_j = w
             for _ in range(inner_steps):
-                g = tree_grad(loss(w_j, d_j, phi), [w_j],
-                              create_graph=True)[0]
+                g, = tree_lib.grad(lambda w_j: loss(w_j, d_j, phi), w_j)
                 w_j = tree_axpy(-eta_w, g, w_j)
             ws.append(w_j)
         return tree_map(lambda *xs: torch.stack(xs).mean(0), *ws)
@@ -73,12 +72,11 @@ def run_fednest(task: RobustHPOTask, n_iterations: int = 200,
         # one unrolled inner pass gives both the new weights and the
         # hypergradient d val / d phi through it (IFT-free 1-step
         # approximation), with w itself held fixed
-        with torch.enable_grad():
-            phi = phi.detach().requires_grad_(True)
-            w_new = local_inner(grad_point(w), phi)
-            g_phi, = torch.autograd.grad(val_loss(w_new), [phi])
-        return tree_map(torch.Tensor.detach, w_new), \
-            phi.detach() - eta_phi * g_phi
+        def objective(phi):
+            w_new = local_inner(w, phi)
+            return val_loss(w_new), w_new
+        g_phi, w_new = torch.func.grad(objective, has_aux=True)(phi)
+        return w_new, phi - eta_phi * g_phi
 
     w = prob.x3_init
     phi = prob.x1_init["phi"]

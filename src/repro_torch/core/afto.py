@@ -18,21 +18,29 @@ from repro_torch.core import cuts as cuts_lib
 from repro_torch.core import inner as inner_lib
 from repro_torch.core.types import (AFTOState, Hyper, InnerState2,
                                     InnerState3, StaleView, TrilevelProblem)
-from repro_torch.utils.tree import (grad_point, tree_add, tree_axpy,
-                                    tree_flatten, tree_grad, tree_map,
-                                    tree_zeros_like)
+from repro_torch.utils import tree as tree_lib
+from repro_torch.utils.tree import (tree_add, tree_axpy, tree_flatten,
+                                    tree_map, tree_zeros_like)
 
 
 # ---------------------------------------------------------------------------
 # projections (Eq. 20/21)
 # ---------------------------------------------------------------------------
 
+def _sqrt(x):
+    """sqrt of a hyper field: a float, or a 0-d tensor under a sweep."""
+    return torch.sqrt(x) if torch.is_tensor(x) else math.sqrt(x)
+
+
 def proj_lambda(lam, hyper: Hyper):
-    return torch.clamp(lam, 0.0, math.sqrt(hyper.alpha4))
+    hi = _sqrt(hyper.alpha4)
+    # torch.clamp takes two numbers or two tensors
+    lo = torch.zeros_like(lam) if torch.is_tensor(hi) else 0.0
+    return torch.clamp(lam, lo, hi)
 
 
 def proj_theta(theta, hyper: Hyper):
-    r = math.sqrt(hyper.alpha5) / hyper.d1
+    r = _sqrt(hyper.alpha5) / hyper.d1
     return tree_map(lambda th: torch.clamp(th, -r, r), theta)
 
 
@@ -88,10 +96,8 @@ def local_f1_grads(problem: TrilevelProblem, X1, X2, X3) -> Tuple:
     worker axis: the federated payload of one master iteration.  Worker
     terms are independent, so one gradient of sum_j f1 w.r.t. the stacked
     (X1, X2, X3) gives every worker's row."""
-    trees = [grad_point(X) for X in (X1, X2, X3)]
-    with torch.enable_grad():
-        total = problem.sum_f(problem.f1, *trees)
-        return tuple(tree_grad(total, trees))
+    return tree_lib.grad(lambda *xs: problem.sum_f(problem.f1, *xs),
+                         X1, X2, X3)
 
 
 def afto_step_aux(problem: TrilevelProblem, hyper: Hyper, state: AFTOState,
@@ -181,15 +187,6 @@ def afto_step_from_grads(problem: TrilevelProblem, hyper: Hyper,
 # cut refresh (Eqs. 23-25, Alg. 1 middle block)
 # ---------------------------------------------------------------------------
 
-def _value_and_grad(fn, *args):
-    """fn(*args) and its gradient w.r.t. every argument tree."""
-    args = [grad_point(a) for a in args]
-    with torch.enable_grad():
-        val = fn(*args)
-        grads = tree_grad(val, args)
-    return val.detach(), grads
-
-
 def cut_refresh(problem: TrilevelProblem, hyper: Hyper,
                 state: AFTOState) -> AFTOState:
     """Generate one I-layer and one II-layer mu-cut at the current point,
@@ -200,7 +197,7 @@ def cut_refresh(problem: TrilevelProblem, hyper: Hyper,
     inner3 = InnerState3(x3=state.X3, z3=state.z3, phi=state.inner3.phi)
 
     # ---- I-layer cut (Eq. 23) at (X3, z1, z2, z3)
-    h0_i, (gX3, gz3, gz1, gz2) = _value_and_grad(
+    h0_i, (gX3, gz3, gz1, gz2) = tree_lib.value_and_grad(
         lambda X3, z3, z1, z2: inner_lib.h_i(problem, hyper, X3, z3, z1, z2,
                                              inner3),
         state.X3, state.z3, state.z1, state.z2)
@@ -221,7 +218,7 @@ def cut_refresh(problem: TrilevelProblem, hyper: Hyper,
                          gamma=state.inner2.gamma * cuts_i.active)
 
     # ---- II-layer cut (Eq. 24) at (X2, X3, z1, z2, z3)
-    h0_ii, (gX2, gz2b, gz1b, gz3b, gX3b) = _value_and_grad(
+    h0_ii, (gX2, gz2b, gz1b, gz3b, gX3b) = tree_lib.value_and_grad(
         lambda X2, z2, z1, z3, X3: inner_lib.h_ii(
             problem, hyper, X2, z2, z1, z3, X3, cuts_i, inner2),
         state.X2, state.z2, state.z1, state.z3, state.X3)

@@ -96,17 +96,22 @@ def _next_slot(active, age):
 
 def add_cut(cuts: FlatCuts, coeffs, c, t) -> FlatCuts:
     """Write the cut into the first inactive slot (or evict the oldest):
-    one row write of the flattened coefficient dict.  The slot stays on
-    the device (no host sync)."""
-    slot = _next_slot(cuts.active, cuts.age).reshape(1)
+    one row write of the flattened coefficient dict, selected by a slot
+    mask, so the slot stays on the device (no host sync) and the write
+    maps over a sweep's runs under `torch.func.vmap`."""
+    slot = _next_slot(cuts.active, cuts.age)
+    hit = torch.arange(cuts.active.shape[0],
+                       device=cuts.active.device) == slot
     row = flatten_coeffs(cuts.spec, coeffs)
-    c = torch.as_tensor(c, dtype=cuts.c.dtype, device=cuts.c.device)
-    t = torch.as_tensor(t, dtype=torch.int32, device=cuts.age.device)
+
+    def like(x, ref):
+        return x.to(ref.dtype) if torch.is_tensor(x) \
+            else torch.tensor(x, dtype=ref.dtype, device=ref.device)
     return FlatCuts(
-        a=cuts.a.index_copy(0, slot, row[None, :]),
-        c=cuts.c.index_copy(0, slot, c.reshape(1)),
-        active=cuts.active.index_fill(0, slot, 1.0),
-        age=cuts.age.index_copy(0, slot, t.reshape(1)),
+        a=torch.where(hit[:, None], row[None, :], cuts.a),
+        c=torch.where(hit, like(c, cuts.c), cuts.c),
+        active=torch.where(hit, torch.ones_like(cuts.active), cuts.active),
+        age=torch.where(hit, like(t, cuts.age), cuts.age),
         spec=cuts.spec)
 
 

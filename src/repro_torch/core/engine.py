@@ -1,9 +1,11 @@
-"""Trajectory engine: a whole single-device AFTO run as one host loop.
+"""Trajectory engines: a whole single-device AFTO run, or R of them at
+once, as one host loop.
 
-Counterpart of `repro/core/engine.py` `run_scanned` (single device,
-static data).  The reference compiles the trajectory into one
-`lax.scan`; here each iteration is eager PyTorch on the device, and the
-loop keeps the device free of host round trips:
+Counterpart of `repro/core/engine.py` `run_scanned` and `run_swept`
+(single device, static data).  The reference compiles the trajectory
+into one `lax.scan`, and a sweep into one `jax.vmap` of it; here each
+iteration is eager PyTorch on the device, and the loop keeps the device
+free of host round trips:
 
   * the schedule's arrival masks are copied to the device once;
   * `afto_step` runs every master iteration (Eqs. 16-21);
@@ -13,20 +15,27 @@ loop keeps the device free of host round trips:
   * at `metrics_every` strides the stationarity gap reuses the step's
     cut operator and cut values, recomputed only after a refresh;
   * recorded values stay on the device until the run ends.
+
+`run_swept` runs R trajectories in the same loop through
+`torch.func.vmap` of the same step, refresh and record, every state leaf
+with a leading run axis: every cut contraction and fused round is one
+batched kernel launch for all R runs (`kernels.cut_ad`'s vmap rules).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.core import afto as afto_lib
 from repro_torch.core import stationarity as stat_lib
 from repro_torch.core.scheduler import Schedule
 from repro_torch.core.types import AFTOState, Hyper, TrilevelProblem
+from repro_torch.utils.tree import tree_leaves
 
 
 @dataclasses.dataclass
@@ -35,6 +44,25 @@ class RunResult:
     history: Dict
     # the live arrival process of an async run; None for scheduled runs
     arrivals: Any = None
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """R trajectories from one sweep: every state leaf and per-run
+    history array carries a leading (R,) axis ("t" is shared)."""
+    state: AFTOState
+    history: Dict
+
+    @property
+    def n_runs(self) -> int:
+        return int(self.state.t.shape[0])
+
+    def run(self, r: int) -> RunResult:
+        """Row r as a RunResult with the single-run history layout."""
+        state_r = pytree.tree_map(lambda x: x[r], self.state)
+        hist_r = {k: (v[r] if np.ndim(v) == 2 else v)
+                  for k, v in self.history.items()}
+        return RunResult(state=state_r, history=hist_r)
 
 
 def record_slots(n_iterations: int,
@@ -116,3 +144,186 @@ def run_scanned(problem: TrilevelProblem, hyper: Hyper, schedule: Schedule,
         schedule.max_staleness)[record_its].astype(np.float64)
     history["host_time"] = elapsed * (record_its + 1) / n_iterations
     return RunResult(state=state, history=history)
+
+
+# ---------------------------------------------------------------------------
+# sweeps: R trajectories through one vmapped loop
+# ---------------------------------------------------------------------------
+
+# Hyper fields that fix shapes or loop lengths, as in the reference
+# (`repro/core/engine.py:192`), and fields that are not numbers; neither
+# can be swept
+_STATIC_HYPER_FIELDS = frozenset({"n_workers", "p_max", "k_inner", "d1"})
+_NON_NUMERIC_FIELDS = frozenset({"use_fused_inner", "cut_impl"})
+# the fused round's step sizes are kernel arguments (static arguments of
+# the reference's kernel), shared by every run of a batched launch
+_FUSED_STEP_FIELDS = frozenset({"eta_z", "eta_s", "eta_dual_inner", "rho2"})
+
+
+def _check_sweep_hypers(hyper: Hyper, sweep_hypers, n_runs: int):
+    """{name: (R,) numpy values} of the swept Hyper fields, validated."""
+    fields = {f.name for f in dataclasses.fields(Hyper)}
+    out = {}
+    for name, vals in dict(sweep_hypers or {}).items():
+        if name not in fields:
+            raise ValueError(f"unknown hyper field {name!r}")
+        if name in _STATIC_HYPER_FIELDS:
+            raise ValueError(
+                f"hyper field {name!r} is shape-determining and cannot be "
+                "swept; run separate sweeps instead")
+        if name in _NON_NUMERIC_FIELDS:
+            raise ValueError(f"hyper field {name!r} is not a number and "
+                             "cannot be swept")
+        if hyper.use_fused_inner and name in _FUSED_STEP_FIELDS:
+            raise ValueError(
+                f"hyper field {name!r} is a step size of the fused round "
+                "(use_fused_inner=True), shared by the runs of a batched "
+                "launch, and cannot be swept")
+        vals = np.asarray(vals.detach().cpu() if torch.is_tensor(vals)
+                          else vals)
+        if vals.shape != (n_runs,):
+            raise ValueError(f"sweep_hypers[{name!r}] must have shape "
+                             f"({n_runs},), got {vals.shape}")
+        out[name] = vals
+    return out
+
+
+def _stack_runs(tree, n_runs: int, device, what: str):
+    """A private copy of a caller's (R,)-leading tree on `device`."""
+    def copy(x):
+        if not (torch.is_tensor(x) or isinstance(x, np.ndarray)):
+            raise NotImplementedError(
+                f"run_swept: {what} leaf of type {type(x).__name__}: only "
+                "tensors and arrays are taken; streamed data is not ported "
+                "yet (ROADMAP.md Queue 1, item 4)")
+        x = torch.as_tensor(x, device=device)
+        if x.shape[:1] != (n_runs,):
+            raise ValueError(f"swept {what} leaves need a leading "
+                             f"({n_runs},) axis, got {tuple(x.shape)}")
+        return x.clone()
+    return pytree.tree_map(copy, tree)
+
+
+def run_swept(problem: TrilevelProblem, hyper: Hyper,
+              schedules: Sequence[Schedule],
+              metrics_fn: Optional[Callable] = None,
+              metrics_every: int = 10,
+              states: Optional[AFTOState] = None,
+              data=None,
+              sweep_hypers: Optional[Mapping] = None) -> SweepResult:
+    """Run R = len(schedules) whole trajectories at once.
+
+    Each iteration runs `torch.func.vmap` of `run_scanned`'s step (and
+    refresh, and record) over a leading run axis: stacked initial states,
+    stacked schedule masks, per-run data and per-run hyper scalars; the
+    iteration and record strides are shared.  All schedules must have the
+    same length and worker count.
+
+      states       optional stacked `AFTOState` ((R,)-leading leaves);
+                   defaults to R copies of `init_state`.  Copied: the
+                   caller's tensors are never changed.
+      data         optional replacement for `problem.data` with a leading
+                   (R,) axis per leaf (per-seed datasets), copied to the
+                   problem's device.  Streams are not ported yet.
+      sweep_hypers {Hyper field: (R,) values}: each run's value rides its
+                   step as a 0-d tensor.  Shape-determining fields
+                   (n_workers/p_max/k_inner/d1) cannot be swept, nor,
+                   with `use_fused_inner`, the fused round's step sizes.
+                   Sweeping t_pre/t1 (or states at different t) makes the
+                   refresh predicate per run: the refresh then runs for
+                   every run on any iteration one run is due and each
+                   run keeps its own branch (`torch.where`), as the
+                   reference's vmapped `lax.cond` lowers to a select.
+
+    History layout: per-run keys (gap_sq, n_cuts_*, sim_time,
+    max_staleness, host_time, metrics_fn keys) are (R, n_records)
+    arrays; "t" is shared (n_records,).  `host_time` charges each run an
+    equal 1/R share of the loop's elapsed time, prorated over
+    iterations as in the single-run engine (the runs interleave, so
+    per-run host seconds do not exist)."""
+    schedules = list(schedules)
+    if not schedules:
+        raise ValueError("run_swept needs at least one schedule")
+    n_runs = len(schedules)
+    n_iterations = schedules[0].n_iterations
+    for s in schedules[1:]:
+        if (s.n_iterations, s.n_workers) != (n_iterations,
+                                             schedules[0].n_workers):
+            raise ValueError(
+                "all swept schedules must share n_iterations/n_workers")
+    swept = _check_sweep_hypers(hyper, sweep_hypers, n_runs)
+    device = tree_leaves(problem.x1_init)[0].device
+
+    if states is None:
+        st0 = afto_lib.init_state(problem, hyper)
+        state = pytree.tree_map(
+            lambda x: x[None].expand((n_runs,) + tuple(x.shape)).clone(),
+            st0)
+    else:
+        state = _stack_runs(states, n_runs, device, "state")
+    if data is not None:
+        data = _stack_runs(data, n_runs, device, "data")
+    values = {k: torch.as_tensor(
+        v, dtype=torch.float32 if v.dtype.kind == "f" else torch.int64,
+        device=device) for k, v in swept.items()}
+    # the refresh predicate per run, on host mirrors of each run's t
+    t_pre = np.broadcast_to(swept.get("t_pre", hyper.t_pre), (n_runs,))
+    t1 = np.broadcast_to(swept.get("t1", hyper.t1), (n_runs,))
+    t_abs = state.t.cpu().numpy().astype(np.int64)
+
+    dims = (0 if values else None, 0 if data is not None else None)
+
+    def bind(fn):
+        """fn(problem, hyper, state, *rest) vmapped over the runs."""
+        def one(vals, run_data, st, *rest):
+            prob = problem if run_data is None else \
+                dataclasses.replace(problem, data=run_data)
+            # each run's swept values ride as 0-d tensors
+            return fn(prob, dataclasses.replace(hyper, **vals), st, *rest)
+        return lambda *args, rest_dims=(): torch.func.vmap(
+            one, in_dims=dims + (0,) + rest_dims)(values, data, *args)
+
+    step = bind(afto_lib.afto_step_aux)
+    refresh = bind(afto_lib.cut_refresh)
+    rec = bind(lambda prob, hyp, st, aux: record(prob, hyp, st, metrics_fn,
+                                                 aux=aux))
+
+    record_its, slots = record_slots(n_iterations, metrics_every)
+    masks = torch.as_tensor(np.stack([s.active for s in schedules], 1),
+                            dtype=torch.float32, device=device)
+    rows = []
+    t_start = time.perf_counter()
+    with torch.no_grad():
+        for it in range(n_iterations):
+            state, aux = step(state, masks[it], rest_dims=(0,))
+            t_abs += 1
+            due = (t_abs % t_pre == 0) & (t_abs - 1 < t1)
+            if due.all():
+                state = refresh(state)
+            elif due.any():
+                fresh = refresh(state)
+                keep = torch.as_tensor(due, device=device)
+                state = pytree.tree_map(
+                    lambda new, old: torch.where(
+                        keep.reshape((-1,) + (1,) * (new.dim() - 1)),
+                        new, old), fresh, state)
+            if slots[it] >= 0:
+                # a refresh rewrote the polytope: the gap recomputes the
+                # step's cut products (for every run: same numbers)
+                rows.append(rec(state, None, rest_dims=(None,))
+                            if due.any() else
+                            rec(state, aux, rest_dims=(0,)))
+        history = {k: torch.stack([r[k].float() for r in rows], 1)
+                   .cpu().numpy() for k in rows[0]}
+    elapsed = time.perf_counter() - t_start
+
+    history["t"] = (record_its + 1).astype(np.float64)
+    history["sim_time"] = np.stack(
+        [np.asarray(s.sim_time)[record_its] for s in schedules])
+    history["max_staleness"] = np.stack(
+        [np.asarray(s.max_staleness)[record_its].astype(np.float64)
+         for s in schedules])
+    history["host_time"] = np.broadcast_to(
+        (elapsed / n_runs) * (record_its + 1) / n_iterations,
+        (n_runs, len(record_its))).copy()
+    return SweepResult(state=state, history=history)

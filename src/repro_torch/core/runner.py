@@ -1,43 +1,46 @@
 """Run dispatcher behind the `RunSpec` API.
 
 Counterpart of `repro/core/runner.py`.  `run(RunSpec(...))` is the
-canonical entry; this slice of the port carries two engines:
+canonical entry; this slice of the port carries three engines:
 
   "scan"   (default) materialize the straggler schedule up front and
            drive the trajectory through `engine.run_scanned`, which keeps
            the device free of per-iteration host round trips.
+  "sweep"  R whole trajectories (per-seed schedules, per-run states,
+           data and hypers) through one vmapped loop
+           (`engine.run_swept`): every kernel launch covers all R runs.
   "eager"  the per-iteration host loop: host-side `metrics_fn`
            callbacks, per-iteration host timestamps, and the live
            scheduler when no schedule is given.
 
-The sweep and async engines, worker meshes, chunked runs and replacement
-or streamed data are later slices of the port and raise
-`NotImplementedError`.
+The async engine, worker meshes, chunked runs and replacement or
+streamed data for the single-run engines are later slices of the port
+and raise `NotImplementedError`.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import (Any, Callable, Dict, List, Mapping, Optional,
+                    Sequence)
 
 import torch
 
 from repro_torch.core import afto as afto_lib
 from repro_torch.core import engine as engine_lib
-from repro_torch.core.engine import RunResult
+from repro_torch.core.engine import RunResult, SweepResult
 from repro_torch.core.scheduler import (Schedule, StragglerConfig,
                                         StragglerScheduler)
 from repro_torch.core.types import AFTOState, Hyper, TrilevelProblem
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves
 
-ENGINES = ("scan", "eager")
+ENGINES = ("scan", "sweep", "eager")
 # what is not ported yet, and its item in ROADMAP.md Queue 1
-_LATER = {"sweep": "the sweep engine (item 3)",
-          "async": "the async runtime (item 5)"}
-_LATER_FIELDS = {"data": "streams and replacement data (item 4)",
-                 "chunk_size": "chunked runs (item 4)",
+_LATER = {"async": "the async runtime (item 5)"}
+_LATER_FIELDS = {"chunk_size": "chunked runs (item 4)",
                  "mesh": "the worker-mesh sharded engine (item 6)"}
+_SWEEP_ONLY = ("schedules", "seeds", "sweep_states", "sweep_hypers")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,11 +57,18 @@ class RunSpec:
       metrics_fn        extra per-record metrics: `state -> {name: 0-d
                         tensor}`.
       metrics_every     record stride.
+      schedules/seeds   per-run arrival processes for engine="sweep"
+                        (one of them; `seeds` re-seeds `scheduler`).
       state             initial `AFTOState` (continuation runs).
+      sweep_states/sweep_hypers  per-run initial states / swept hyper
+                        scalars for engine="sweep".
+      data              engine="sweep": replacement `problem.data` with
+                        a leading (R,) axis per leaf (per-seed data).
+                        The single-run engines take none yet (streams
+                        and replacement data are a later slice).
       device            where the run happens; None means CUDA (and
                         raises without it).  The problem must live there.
-      data, mesh, chunk_size
-                        later slices of the port; must stay None.
+      mesh, chunk_size  later slices of the port; must stay None.
     """
     problem: TrilevelProblem
     hyper: Hyper
@@ -66,9 +76,13 @@ class RunSpec:
     n_iterations: int = 200
     scheduler: Optional[StragglerConfig] = None
     schedule: Optional[Schedule] = None
+    schedules: Optional[Sequence[Schedule]] = None
+    seeds: Optional[Sequence[int]] = None
     metrics_fn: Optional[Callable] = None
     metrics_every: int = 10
     state: Optional[AFTOState] = None
+    sweep_states: Optional[AFTOState] = None
+    sweep_hypers: Optional[Mapping] = None
     device: Optional[str] = None
     data: Any = None
     mesh: Any = None
@@ -87,8 +101,9 @@ class RunSpec:
         return self.n_iterations
 
 
-def run(spec: RunSpec) -> RunResult:
-    """Run AFTO as `spec` says."""
+def run(spec: RunSpec):
+    """Run AFTO as `spec` says: a `RunResult`, or for engine="sweep" a
+    `SweepResult`."""
     if spec.engine in _LATER:
         raise NotImplementedError(
             f"engine={spec.engine!r}: {_LATER[spec.engine]} is not ported "
@@ -101,12 +116,23 @@ def run(spec: RunSpec) -> RunResult:
             raise NotImplementedError(
                 f"RunSpec.{name}: {what} is not ported yet (ROADMAP.md "
                 "Queue 1)")
+    if spec.engine != "sweep":
+        if spec.data is not None:
+            raise NotImplementedError(
+                "RunSpec.data: streams and replacement data for the "
+                f"{spec.engine!r} engine are not ported yet (ROADMAP.md "
+                "Queue 1, item 4); engine='sweep' takes per-run data")
+        for name in _SWEEP_ONLY:
+            if getattr(spec, name) is not None:
+                raise ValueError(f"RunSpec.{name} is for engine='sweep'")
     device = resolve_device(spec.device)
     for leaf in tree_leaves((spec.problem.x1_init, spec.problem.data)):
         if leaf.device.type != device.type:
             raise ValueError(f"the problem lives on {leaf.device}, the run "
                              f"on {device}")
 
+    if spec.engine == "sweep":
+        return _run_sweep(spec)
     if spec.engine == "scan":
         schedule = spec.schedule
         if schedule is None:
@@ -116,6 +142,30 @@ def run(spec: RunSpec) -> RunResult:
             spec.problem, spec.hyper, schedule, metrics_fn=spec.metrics_fn,
             metrics_every=spec.metrics_every, state=spec.state)
     return _run_eager(spec)
+
+
+def _run_sweep(spec: RunSpec) -> SweepResult:
+    """engine="sweep": one schedule per entry of `schedules`, or per seed
+    of `seeds` (the scheduler re-seeded), or the scheduler's own seed."""
+    if spec.state is not None or spec.schedule is not None:
+        raise ValueError(
+            "engine='sweep' takes per-run sweep_states/schedules; the "
+            "single-run state/schedule would be silently ignored")
+    if spec.schedules is not None and spec.seeds is not None:
+        raise ValueError("pass either explicit `schedules` or `seeds` "
+                         "(which materialize one schedule per seed), not "
+                         "both")
+    schedules = spec.schedules
+    if schedules is None:
+        cfg = spec.resolved_scheduler()
+        seeds = list(spec.seeds) if spec.seeds is not None else [cfg.seed]
+        schedules = [
+            StragglerScheduler(dataclasses.replace(cfg, seed=s))
+            .precompute(spec.n_iterations) for s in seeds]
+    return engine_lib.run_swept(
+        spec.problem, spec.hyper, schedules, metrics_fn=spec.metrics_fn,
+        metrics_every=spec.metrics_every, states=spec.sweep_states,
+        data=spec.data, sweep_hypers=spec.sweep_hypers)
 
 
 def _run_eager(spec: RunSpec) -> RunResult:

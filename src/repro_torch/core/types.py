@@ -21,6 +21,7 @@ import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.core.scheduler import validate_arrival_params
 from repro_torch.utils.tree import tree_index
@@ -72,8 +73,12 @@ class Hyper:
     cut_impl: Optional[str] = None
 
     def __post_init__(self):
-        validate_arrival_params(self.s_active, self.tau, self.n_workers,
-                                what="Hyper")
+        # a swept hyper holds a per-run 0-d tensor (`engine.run_swept`);
+        # only concrete ints are judged, as in the reference
+        if all(isinstance(v, int) for v in
+               (self.n_workers, self.s_active, self.tau)):
+            validate_arrival_params(self.s_active, self.tau,
+                                    self.n_workers, what="Hyper")
 
     def c1(self, t):
         return _reg_weight(self.c1_floor, self.eta_lambda, t)
@@ -198,6 +203,28 @@ class TrilevelProblem:
             self.n_workers,
             lambda j: f(self.worker_data(j), tree_index(X1, j),
                         tree_index(X2, j), tree_index(X3, j)))
+
+
+def _register_pytrees():
+    """Make the state containers pytrees of `torch.utils._pytree`, so
+    `torch.func.vmap` maps over their tensor leaves (the sweep engine's
+    run axis); a `FlatCuts`' column layout `spec` is static context."""
+    for cls in (InnerState3, InnerState2, StaleView, AFTOState):
+        names = tuple(f.name for f in dataclasses.fields(cls))
+        pytree.register_pytree_node(
+            cls,
+            lambda x, names=names: ([getattr(x, n) for n in names], None),
+            lambda children, _ctx, cls=cls, names=names: cls(
+                **dict(zip(names, children))),
+            serialized_type_name=f"repro_torch.core.types.{cls.__name__}")
+    pytree.register_pytree_node(
+        FlatCuts,
+        lambda fc: ([fc.a, fc.c, fc.active, fc.age], fc.spec),
+        lambda children, spec: FlatCuts(*children, spec=spec),
+        serialized_type_name="repro_torch.core.types.FlatCuts")
+
+
+_register_pytrees()
 
 
 def sum_workers(n: int, term: Callable[[int], torch.Tensor]):

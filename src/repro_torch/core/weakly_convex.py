@@ -8,8 +8,10 @@ bound from Hessian-vector products, so users can set `Hyper.mu_i/mu_ii`
 from data.
 
 Points and directions are trees of tensors (`repro_torch.utils.tree`).
-The Hessian-vector product runs reverse over reverse, so it goes through
-the cut kernels' autograd Functions, which have no forward-mode rule.
+The Hessian-vector product runs forward over reverse, `torch.func.jvp`
+of the gradient, as the reference's `jax.jvp(jax.grad(fn))`; through the
+cut kernels it takes the `jvp` rules of the `cut_ad` Functions and of
+`ops.FusedRound`.
 """
 from __future__ import annotations
 
@@ -17,22 +19,19 @@ from typing import Callable
 
 import torch
 
-from repro_torch.utils.tree import (grad_point, tree_dot, tree_flatten,
-                                    tree_grad, tree_map, tree_norm_sq,
-                                    tree_sub, tree_unflatten)
+from repro_torch.utils import tree as tree_lib
+from repro_torch.utils.tree import (tree_dot, tree_flatten, tree_map,
+                                    tree_norm_sq, tree_sub, tree_unflatten)
 
 
 def curvature_along(fn: Callable, point, direction):
-    """d^T H d / ||d||^2 at `point`: the gradient of <grad f(p), d>."""
-    direction = tree_map(torch.Tensor.detach, direction)
-    with torch.enable_grad():
-        p = grad_point(point)
-        g = tree_grad(fn(p), [p], create_graph=True)[0]
-        gd = tree_dot(g, direction)
-        # a function at most linear in p leaves no graph behind its gradient
-        hvp = tree_grad(gd, [p])[0] if gd.requires_grad \
-            else tree_map(torch.zeros_like, p)
-    return tree_dot(direction, hvp).detach() / torch.clamp(
+    """d^T H d / ||d||^2 at `point`: the directional derivative of
+    grad f along d."""
+    point, direction = (tree_map(torch.Tensor.detach, t)
+                        for t in (point, direction))
+    _, hvp = torch.func.jvp(lambda p: tree_lib.grad(fn, p)[0], (point,),
+                            (direction,))
+    return tree_dot(direction, hvp) / torch.clamp(
         tree_norm_sq(direction), min=1e-30)
 
 
@@ -64,12 +63,8 @@ def first_order_gap(fn: Callable, x, x_ref, mu):
 
     Nonnegative for all (x, x') iff fn is mu-weakly convex; the property
     tests use it to check cut validity."""
-    with torch.enable_grad():
-        p = grad_point(x_ref)
-        f_ref = fn(p)
-        g = tree_grad(f_ref, [p])[0]
-    with torch.no_grad():
-        d = tree_sub(tree_map(torch.Tensor.detach, x), p)
-        lin = f_ref.detach() + tree_dot(g, d) - 0.5 * mu * tree_norm_sq(d)
-        return fn(tree_map(torch.Tensor.detach, x)) - lin
-
+    x, x_ref = (tree_map(torch.Tensor.detach, t) for t in (x, x_ref))
+    f_ref, (g,) = tree_lib.value_and_grad(fn, x_ref)
+    d = tree_sub(x, x_ref)
+    lin = f_ref + tree_dot(g, d) - 0.5 * mu * tree_norm_sq(d)
+    return fn(x) - lin

@@ -8,10 +8,12 @@ fig2_domain_adapt.py  Fig. 2: domain adaptation, both pretrain directions
 table2_baselines.py Table 2: AFTO vs ADBO vs FedNest, noisy-test MSE
 rate_thm45.py       Thm. 4.5: the O(1/eps^2) iteration-complexity check
 comm_complexity.py  Thm. 4.6: bits per master iteration vs C1
+engine_speed.py     the sweep engine against a loop of single runs
 run.py              `python -m repro_torch.experiments.run`: the CSV
 
 Each entry point takes `device=None`, which means the CUDA device (and
-raises without one); `device="cpu"` runs on the CPU.  Every method and
-seed runs on the scan engine, one after another: the sweep engine is not
-ported yet (ROADMAP.md Queue 1, item 3).
+raises without one); `device="cpu"` runs on the CPU.  As in the
+reference, the methods of a figure, Table 2's AFTO seeds and the rate
+check's seeds run as one sweep (`engine="sweep"`, the default);
+`engine="scan"` runs them one after another.
 """

@@ -1,10 +1,11 @@
-"""Shared pieces of the paper's evaluation: the per-method run loop of
-the figure experiments and the tiny quadratic trilevel problem of the
-rate and communication checks.
+"""Shared pieces of the paper's evaluation: the per-method runs of the
+figure experiments and the tiny quadratic trilevel problem of the rate
+and communication checks.
 
-Counterpart of `benchmarks/conftest_shim.py`.  The reference runs the
-methods as one swept dispatch; the port runs them one after another on
-the scan engine, with the same schedules and per-method hypers.
+Counterpart of `benchmarks/conftest_shim.py`.  As in the reference, the
+methods of a figure run as one sweep (`engine="sweep"`, the default);
+`engine="scan"` runs them one after another on the scan engine, with the
+same schedules and per-method hypers.
 """
 from __future__ import annotations
 
@@ -20,8 +21,7 @@ from repro_torch.core.types import Hyper, TrilevelProblem
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves
 
-SWEEP_LATER = ("engine='sweep': the sweep engine is not ported yet "
-               "(ROADMAP.md Queue 1, item 3); use engine='scan'")
+ENGINES = ("sweep", "scan")
 
 
 def problem_device(problem: TrilevelProblem) -> torch.device:
@@ -29,31 +29,45 @@ def problem_device(problem: TrilevelProblem) -> torch.device:
     return tree_leaves(problem.x1_init)[0].device
 
 
+def check_engine(engine: str) -> None:
+    if engine not in ENGINES:
+        raise ValueError(f"engine={engine!r}; the experiments run on one "
+                         f"of {ENGINES}")
+
+
 def method_histories(problem: TrilevelProblem, hyper: Hyper,
                      s_actives: Sequence[int], n_iterations: int,
                      metrics_fn: Optional[Callable], metrics_every: int, *,
                      n_workers: int, tau: int, n_stragglers: int, seed: int,
                      straggler_slowdown: float = 5.0,
-                     engine: str = "scan") -> List[Dict]:
+                     engine: str = "sweep") -> List[Dict]:
     """One run per `s_actives` entry (e.g. AFTO's S-of-N vs SFTO's all-N),
     each on its own precomputed arrival schedule and with
-    `hyper.s_active` set to its S, as the reference's sweep sets it;
-    returns the per-method histories."""
-    hists = []
-    for s_active in s_actives:
-        schedule = StragglerScheduler(StragglerConfig(
+    `hyper.s_active` set to its S; returns the per-method histories.
+    engine="sweep" runs them as one sweep (each S riding it as a per-run
+    `hyper.s_active`, as `swept_method_histories` in the reference),
+    engine="scan" one after another."""
+    check_engine(engine)
+    schedules = [
+        StragglerScheduler(StragglerConfig(
             n_workers=n_workers, s_active=s_active, tau=tau,
             n_stragglers=n_stragglers,
             straggler_slowdown=straggler_slowdown,
             seed=seed)).precompute(n_iterations)
-        res = runner.run(runner.RunSpec(
-            problem=problem,
-            hyper=dataclasses.replace(hyper, s_active=s_active),
-            schedule=schedule, metrics_fn=metrics_fn,
-            metrics_every=metrics_every, engine=engine,
-            device=problem_device(problem)))
-        hists.append(res.history)
-    return hists
+        for s_active in s_actives]
+    spec = runner.RunSpec(
+        problem=problem, hyper=hyper, n_iterations=n_iterations,
+        metrics_fn=metrics_fn, metrics_every=metrics_every, engine=engine,
+        device=problem_device(problem))
+    if engine == "sweep":
+        res = runner.run(dataclasses.replace(
+            spec, schedules=schedules,
+            sweep_hypers={"s_active": list(s_actives)}))
+        return [res.run(r).history for r in range(len(s_actives))]
+    return [runner.run(dataclasses.replace(
+        spec, hyper=dataclasses.replace(hyper, s_active=s_active),
+        schedule=schedule)).history
+        for s_active, schedule in zip(s_actives, schedules)]
 
 
 def make_quadratic_problem(n_workers: int = 4, dim: int = 3, seed: int = 0,

@@ -11,7 +11,7 @@ import time
 from typing import Optional
 
 from repro_torch.apps.robust_hpo import default_hyper, make_robust_hpo_problem
-from repro_torch.experiments.common import SWEEP_LATER, method_histories
+from repro_torch.experiments.common import method_histories
 
 # Table 1 settings: (N, S, stragglers, tau)
 SETTINGS = {
@@ -22,13 +22,12 @@ SETTINGS = {
 }
 
 def run_dataset(dataset: str, n_iterations: int = 120, seed: int = 0,
-                engine: str = "scan", device=None,
+                engine: str = "sweep", device=None,
                 w0: Optional[dict] = None):
-    """AFTO vs SFTO, one run after the other: the two methods differ only
-    in their arrival schedules (S-of-N vs all-N).  `w0` replaces the
-    seeded initial MLP (e.g. the reference's `jax.random` draw)."""
-    if engine == "sweep":
-        raise NotImplementedError(SWEEP_LATER)
+    """AFTO vs SFTO as one sweep (engine="sweep") or one run after the
+    other (engine="scan"): the two methods differ only in their arrival
+    schedules (S-of-N vs all-N).  `w0` replaces the seeded initial MLP
+    (e.g. the reference's `jax.random` draw)."""
     n, s, stragglers, tau = SETTINGS[dataset]
     task = make_robust_hpo_problem(dataset, n_workers=n, seed=seed,
                                    device=device, w0=w0)
@@ -71,7 +70,7 @@ def speedup(rows, dataset: str, target_frac: float = 0.7):
     return 1.0 - out["AFTO"] / out["SFTO"]
 
 
-def main(n_iterations: int = 120, datasets=None, engine: str = "scan",
+def main(n_iterations: int = 120, datasets=None, engine: str = "sweep",
          device=None):
     results = []
     for ds in datasets or list(SETTINGS):

@@ -12,7 +12,7 @@ from typing import Optional, Sequence
 
 from repro_torch.apps.domain_adaptation import (default_hyper,
                                                 make_domain_adaptation_problem)
-from repro_torch.experiments.common import SWEEP_LATER, method_histories
+from repro_torch.experiments.common import method_histories
 
 # Table 1: SVHN(finetune): N=4 S=3 1 straggler tau=5;
 #          SVHN(pretrain): N=6 S=3 2 stragglers tau=15
@@ -23,13 +23,11 @@ SETTINGS = {
 
 
 def run_direction(direction: str, n_iterations: int = 40, seed: int = 0,
-                  engine: str = "scan", device=None,
+                  engine: str = "sweep", device=None,
                   x_init: Optional[Sequence[dict]] = None):
-    """AFTO vs SFTO, one run after the other (they differ only in arrival
-    schedules).  `x_init` replaces the three seeded LeNets (e.g. the
+    """AFTO vs SFTO as one sweep (engine="sweep") or one run after the
+    other (engine="scan"); they differ only in arrival schedules.  `x_init` replaces the three seeded LeNets (e.g. the
     reference's `jax.random` draws as dicts of numpy arrays)."""
-    if engine == "sweep":
-        raise NotImplementedError(SWEEP_LATER)
     n, s, stragglers, tau = SETTINGS[direction]
     domain = "svhn" if direction == "svhn_pretrain" else "mnist"
     task = make_domain_adaptation_problem(
@@ -71,7 +69,7 @@ def accel(rows):
     return 1.0 - t_hit["AFTO"] / t_hit["SFTO"]
 
 
-def main(n_iterations: int = 40, directions=None, engine: str = "scan",
+def main(n_iterations: int = 40, directions=None, engine: str = "sweep",
          device=None):
     out = []
     for d in directions or list(SETTINGS):

@@ -10,6 +10,7 @@ below ~2.3 is consistent with (does not falsify) the bound.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, Optional
 
@@ -18,7 +19,8 @@ import numpy as np
 from repro_torch.core import runner
 from repro_torch.core.scheduler import StragglerConfig
 from repro_torch.core.types import Hyper
-from repro_torch.experiments.common import make_quadratic_problem
+from repro_torch.experiments.common import (check_engine,
+                                            make_quadratic_problem)
 
 
 def _fit_slope(t, g, t1):
@@ -48,24 +50,33 @@ def _fit_slope(t, g, t1):
 
 
 def main(n_iterations: int = 400, seed: int = 0, n_seeds: int = 2,
-         device=None, data: Optional[Dict] = None):
-    """Seed repetitions of the rate check, one run after the other, each
-    on the arrival process re-seeded with its seed; the bound must hold
-    per seed, so each run is fitted separately.  `data` hands over the
-    quadratic problem's `A` and `b`."""
+         device=None, data: Optional[Dict] = None, engine: str = "sweep"):
+    """Seed repetitions of the rate check, each on the arrival process
+    re-seeded with its seed: one sweep (engine="sweep", `seeds=`) or one
+    run after the other (engine="scan").  The bound must hold per seed,
+    so each run is fitted separately.  `data` hands over the quadratic
+    problem's `A` and `b`."""
+    check_engine(engine)
     t0 = time.perf_counter()
     prob = make_quadratic_problem(n_workers=4, dim=3, seed=seed,
                                   device=device, data=data)
     hyper = Hyper(n_workers=4, s_active=3, tau=5, k_inner=3, p_max=6,
                   t_pre=10, t1=200, eta_x=0.05, eta_z=0.05, d1=3)
+    cfg = StragglerConfig(n_workers=4, s_active=3, tau=5, n_stragglers=1,
+                          seed=seed)
+    spec = runner.RunSpec(problem=prob, hyper=hyper, scheduler=cfg,
+                          n_iterations=n_iterations, metrics_every=5,
+                          engine=engine, device=device)
+    seeds = [seed + r for r in range(n_seeds)]
+    if engine == "sweep":
+        res = runner.run(dataclasses.replace(spec, seeds=seeds))
+        hists = [res.run(r).history for r in range(n_seeds)]
+    else:
+        hists = [runner.run(dataclasses.replace(
+            spec, scheduler=dataclasses.replace(cfg, seed=s))).history
+            for s in seeds]
     slopes, gap0, gapT = [], None, []
-    for r in range(n_seeds):
-        cfg = StragglerConfig(n_workers=4, s_active=3, tau=5,
-                              n_stragglers=1, seed=seed + r)
-        h = runner.run(runner.RunSpec(
-            problem=prob, hyper=hyper, scheduler=cfg,
-            n_iterations=n_iterations, metrics_every=5, engine="scan",
-            device=device)).history
+    for r, h in enumerate(hists):
         t = np.asarray(h["t"], dtype=np.float64)
         g = np.asarray(h["gap_sq"], dtype=np.float64)
         slope, gmin = _fit_slope(t, g, hyper.t1)

@@ -9,12 +9,13 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.apps.baselines import run_adbo, run_fednest
 from repro_torch.apps.robust_hpo import default_hyper, make_robust_hpo_problem
-from repro_torch.core import runner
+from repro_torch.core import afto, runner
 from repro_torch.core.scheduler import StragglerConfig, StragglerScheduler
-from repro_torch.experiments.common import problem_device
+from repro_torch.experiments.common import check_engine, problem_device
 
 DATASETS = ("diabetes", "boston", "red_wine", "white_wine")
 # FedNest's inner loop takes inner_steps (4) + 1 gradient evaluations per
@@ -24,16 +25,42 @@ DATASETS = ("diabetes", "boston", "red_wine", "white_wine")
 GRAD_EQUAL = 5
 
 
+def _schedules(n, n_iterations, seeds):
+    """Each seed's arrival process (S = n-1, tau 10, one straggler)."""
+    return [StragglerScheduler(StragglerConfig(
+        n_workers=n, s_active=max(1, n - 1), tau=10, n_stragglers=1,
+        seed=seed)).precompute(n_iterations) for seed in seeds]
+
+
+def _stack(trees):
+    return torch.utils._pytree.tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def run_afto_swept(tasks, n, n_iterations, seeds):
+    """All AFTO seed repetitions of one dataset as one sweep: per-seed
+    datasets ride the sweep's stacked `data` axis, per-seed model inits
+    its stacked initial states, and per-seed arrival processes its
+    schedules.  The per-seed tasks share their objective closures (same
+    dataset family and worker count), so run 0's problem supplies them.
+    Returns the per-seed mean-worker x3."""
+    hyper = default_hyper(tasks[0], n, max(1, n - 1), 10)
+    res = runner.run(runner.RunSpec(
+        problem=tasks[0].problem, hyper=hyper, n_iterations=n_iterations,
+        metrics_every=n_iterations, engine="sweep",
+        schedules=_schedules(n, n_iterations, seeds),
+        sweep_states=_stack([afto.init_state(t.problem, hyper)
+                             for t in tasks]),
+        data=_stack([t.problem.data for t in tasks]),
+        device=problem_device(tasks[0].problem)))
+    return [{k: v[r].mean(0) for k, v in res.state.X3.items()}
+            for r in range(len(seeds))]
+
+
 def run_afto_seeds(tasks, n, n_iterations, seeds):
-    """The AFTO seed repetitions of one dataset, one run after the other:
-    per-seed data, initial state and arrival process (S = n-1, tau 10,
-    one straggler).  Returns the per-seed mean-worker x3."""
+    """The same, one scan run after the other."""
     hyper = default_hyper(tasks[0], n, max(1, n - 1), 10)
     out = []
-    for task, seed in zip(tasks, seeds):
-        schedule = StragglerScheduler(StragglerConfig(
-            n_workers=n, s_active=max(1, n - 1), tau=10, n_stragglers=1,
-            seed=seed)).precompute(n_iterations)
+    for task, schedule in zip(tasks, _schedules(n, n_iterations, seeds)):
         res = runner.run(runner.RunSpec(
             problem=task.problem, hyper=hyper, schedule=schedule,
             metrics_every=n_iterations, engine="scan",
@@ -43,10 +70,13 @@ def run_afto_seeds(tasks, n, n_iterations, seeds):
 
 
 def score_methods(dataset: str, n_iterations: int = 150, seeds=(0, 1),
-                  noise: float = 0.3, device=None):
+                  noise: float = 0.3, device=None, engine: str = "sweep"):
     """{method: (per-seed noisy-test MSEs, seconds)} at an equal gradient
     budget; seconds are host seconds over the method's runs and scores,
-    which end in a device synchronisation."""
+    which end in a device synchronisation.  AFTO's seeds run as one
+    sweep (engine="sweep") or one after another (engine="scan")."""
+    check_engine(engine)
+    afto_runs = run_afto_swept if engine == "sweep" else run_afto_seeds
     tasks = [make_robust_hpo_problem(dataset, n_workers=4, seed=seed,
                                      device=device) for seed in seeds]
 
@@ -57,7 +87,7 @@ def score_methods(dataset: str, n_iterations: int = 150, seeds=(0, 1),
         return scores, time.perf_counter() - t0
 
     return {
-        "AFTO": scored(lambda: run_afto_seeds(
+        "AFTO": scored(lambda: afto_runs(
             tasks, 4, n_iterations * GRAD_EQUAL, seeds)),
         "ADBO": scored(lambda: [
             run_adbo(task, n_iterations=n_iterations * GRAD_EQUAL,
@@ -69,11 +99,12 @@ def score_methods(dataset: str, n_iterations: int = 150, seeds=(0, 1),
 
 
 def main(n_iterations: int = 150, seeds=(0, 1), noise: float = 0.3,
-         datasets=DATASETS, device=None):
+         datasets=DATASETS, device=None, engine: str = "sweep"):
     rows = []
     for ds in datasets:
         t0 = time.perf_counter()
-        scores = score_methods(ds, n_iterations, seeds, noise, device)
+        scores = score_methods(ds, n_iterations, seeds, noise, device,
+                               engine)
         dt = time.perf_counter() - t0
         stat = {k: (float(np.mean(v)), float(np.std(v)))
                 for k, (v, _) in scores.items()}

@@ -90,14 +90,25 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cut_vecmat.restype = i
     lib.cut_rank1.argtypes = [p, i, p, i, p, i, ll, p]
     lib.cut_rank1.restype = i
+    lib.cut_matvec_runs.argtypes = [p, i, ll, p, i, ll, p, p, p, i, i, ll,
+                                    i, ll, p]
+    lib.cut_matvec_runs.restype = i
+    lib.cut_vecmat_runs.argtypes = [p, i, ll, p, i, ll, p, ll, i, i, ll, i,
+                                    ll, p]
+    lib.cut_vecmat_runs.restype = i
+    lib.cut_rank1_runs.argtypes = [p, i, ll, p, i, ll, p, i, i, ll, p]
+    lib.cut_rank1_runs.restype = i
     f = ctypes.c_float
     lib.fused_cut_round_scratch.argtypes = [i, i]
     lib.fused_cut_round_scratch.restype = ll
-    lib.fused_cut_round_occupancy.argtypes = [i, i, ll]
+    lib.fused_cut_round_occupancy.argtypes = [i, i, ll, i]
     lib.fused_cut_round_occupancy.restype = i
     lib.fused_cut_round.argtypes = [p, i, *([p] * 13), i, ll, i, ll, i, ll,
                                     f, f, f, f, p]
     lib.fused_cut_round.restype = i
+    lib.fused_cut_round_runs.argtypes = [p, i, *([p] * 14), i, i, ll, i,
+                                         ll, i, ll, f, f, f, f, p]
+    lib.fused_cut_round_runs.restype = i
     for name in ("flash_attention_simt_max_head_dim",
                  "mlstm_chunk_simt_max_head_dim",
                  "mlstm_chunk_simt_max_len"):

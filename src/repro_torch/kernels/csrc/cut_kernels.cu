@@ -43,6 +43,15 @@
 // one per thread.  Each column sums its rows in order r = 0 .. P-1 in
 // one thread: no atomics, bitwise repeatable.
 //
+// Batched forms (the sweep engine's run axis; src/repro/kernels/cut_ad.py
+// batches the Pallas kernels by vmapping them, which adds a grid axis):
+// cut_matvec_runs, cut_vecmat_runs and cut_rank1_runs take R problems in
+// one launch, the run index a grid dimension.  Each operand carries a run
+// stride, 0 for an operand the runs share, so a shared operand is never
+// copied.  Each run takes the single-run grid and the single-run kernel
+// body on its own pointers (matvec with its own ticket and partials), so
+// row r of a batched call is bitwise the single-run kernel on run r.
+//
 // Each launcher returns cudaGetLastError() so the caller can raise on a
 // refused launch.  Kernels allocate nothing; the caller passes outputs
 // and scratch.  Built for sm_90a with the other sources of this
@@ -209,10 +218,10 @@ __device__ __forceinline__ void mv_sweep(const TA* __restrict__ a,
 // wide enough that, in the 8-row kernel, every thread has a 16-byte load
 // of each row.
 template <int R, int U, typename TA, typename TV>
-__global__ void __launch_bounds__(kThreads, 2)
-matvec_kernel(const TA* __restrict__ a, const TV* __restrict__ v,
-              float* __restrict__ partial, int* __restrict__ ticket,
-              float* __restrict__ out, int p, long long d, long long cw) {
+__device__ __forceinline__ void matvec_body(
+    const TA* __restrict__ a, const TV* __restrict__ v,
+    float* __restrict__ partial, int* __restrict__ ticket,
+    float* __restrict__ out, int p, long long d, long long cw) {
   __shared__ float vs[kMvCols + kMvCols / 32];
   __shared__ float red[kWarps][kRows];
   __shared__ int last;
@@ -246,6 +255,31 @@ matvec_kernel(const TA* __restrict__ a, const TV* __restrict__ v,
     if (threadIdx.x < nr) out[p0 + threadIdx.x] = s;
   }
   if (threadIdx.x == 0) *ticket = 0;
+}
+
+template <int R, int U, typename TA, typename TV>
+__global__ void __launch_bounds__(kThreads, 2)
+matvec_kernel(const TA* __restrict__ a, const TV* __restrict__ v,
+              float* __restrict__ partial, int* __restrict__ ticket,
+              float* __restrict__ out, int p, long long d, long long cw) {
+  matvec_body<R, U>(a, v, partial, ticket, out, p, d, cw);
+}
+
+// The same for gridDim.y runs: run y reads A and v at its run strides
+// (0 for an operand the runs share) and owns row y of the (runs, P,
+// blocks) partials, ticket y and row y of the (runs, P) output, so each
+// run is the single-run kernel on its own operands, bit for bit.
+template <int R, int U, typename TA, typename TV>
+__global__ void __launch_bounds__(kThreads, 2)
+matvec_runs_kernel(const TA* __restrict__ a, long long a_rs,
+                   const TV* __restrict__ v, long long v_rs,
+                   float* __restrict__ partial, int* __restrict__ tickets,
+                   float* __restrict__ out, int p, long long d,
+                   long long cw) {
+  const long long y = blockIdx.y;
+  matvec_body<R, U>(a + y * a_rs, v + y * v_rs,
+                    partial + y * p * gridDim.x, tickets + y, out + y * p,
+                    p, d, cw);
 }
 
 // Loads of A that vecmat reads once: through the read-only path without
@@ -333,9 +367,9 @@ __device__ __forceinline__ void axpy16(float* acc, float g, uint4 x,
 // A row that is not 16-byte aligned is read in narrower loads of the same
 // 16 bytes; the slice's last len % V columns are summed one per thread.
 template <int R, int U, typename TG, typename TA>
-__global__ void __launch_bounds__(kThreads, 2)
-vecmat_kernel(const TG* __restrict__ g, const TA* __restrict__ a,
-              float* __restrict__ out, int p, long long d, long long cw) {
+__device__ __forceinline__ void vecmat_body(
+    const TG* __restrict__ g, const TA* __restrict__ a,
+    float* __restrict__ out, int p, long long d, long long cw) {
   constexpr int V = 16 / sizeof(TA);
   const long long c0 = static_cast<long long>(blockIdx.x) * cw;
   const int len = static_cast<int>(min(cw, d - c0));
@@ -407,11 +441,38 @@ vecmat_kernel(const TG* __restrict__ g, const TA* __restrict__ a,
   }
 }
 
-// Elementwise, grid-stride along D (x) and the cut rows (y).
+template <int R, int U, typename TG, typename TA>
+__global__ void __launch_bounds__(kThreads, 2)
+vecmat_kernel(const TG* __restrict__ g, const TA* __restrict__ a,
+              float* __restrict__ out, int p, long long d, long long cw) {
+  vecmat_body<R, U>(g, a, out, p, d, cw);
+}
+
+// gridDim.y runs: run y reads g and A at their run strides and writes
+// row y of the output, whose rows start `o_rs` floats apart (a multiple
+// of 4, so every row stays 16-byte aligned).
+template <int R, int U, typename TG, typename TA>
+__global__ void __launch_bounds__(kThreads, 2)
+vecmat_runs_kernel(const TG* __restrict__ g, long long g_rs,
+                   const TA* __restrict__ a, long long a_rs,
+                   float* __restrict__ out, long long o_rs, int p,
+                   long long d, long long cw) {
+  const long long y = blockIdx.y;
+  vecmat_body<R, U>(g + y * g_rs, a + y * a_rs, out + y * o_rs, p, d, cw);
+}
+
+// Elementwise, grid-stride along D (x) and the cut rows (y); grid z
+// runs over the runs of a batched call, each reading x and y at their
+// run strides (0 for a single call) and writing its own (P, D) block.
 template <typename TX, typename TY>
 __global__ void __launch_bounds__(kThreads)
-rank1_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
+rank1_kernel(const TX* __restrict__ x, long long x_rs,
+             const TY* __restrict__ y, long long y_rs,
              float* __restrict__ out, int p, long long d) {
+  const long long run = blockIdx.z;
+  x += run * x_rs;
+  y += run * y_rs;
+  out += run * p * d;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (int r = blockIdx.y; r < p; r += gridDim.y) {
     const float xr = ld(x, r);
@@ -478,12 +539,65 @@ cudaError_t launch_vecmat(const void* g, const void* a, float* out, int p,
   return cudaGetLastError();
 }
 
+// gridDim.y = runs, each run on the single-run grid; `tickets`: runs
+// ints, 0 between calls; `partial`: (runs, p, blocks) floats.
+template <typename TA, typename TV>
+cudaError_t launch_matvec_runs(const void* a, long long a_rs, const void* v,
+                               long long v_rs, float* partial, int* tickets,
+                               float* out, int runs, int p, long long d,
+                               int blocks, long long cw,
+                               cudaStream_t stream) {
+  if (!valid_grid(d, blocks, cw) || runs < 1 || runs > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const TA* pa = static_cast<const TA*>(a);
+  const TV* pv = static_cast<const TV*>(v);
+  const dim3 grid(blocks, runs);
+  if (p <= 2) {
+    matvec_runs_kernel<2, 4><<<grid, kThreads, 0, stream>>>(
+        pa, a_rs, pv, v_rs, partial, tickets, out, p, d, cw);
+  } else {
+    matvec_runs_kernel<8, 1><<<grid, kThreads, 0, stream>>>(
+        pa, a_rs, pv, v_rs, partial, tickets, out, p, d, cw);
+  }
+  return cudaGetLastError();
+}
+
+// Rows of `out` o_rs floats apart, o_rs a multiple of 4 and out 16-byte
+// aligned.
+template <typename TG, typename TA>
+cudaError_t launch_vecmat_runs(const void* g, long long g_rs, const void* a,
+                               long long a_rs, float* out, long long o_rs,
+                               int runs, int p, long long d, int blocks,
+                               long long cw, cudaStream_t stream) {
+  if (!valid_grid(d, blocks, cw) || runs < 1 || runs > 65535
+      || o_rs < d || o_rs % 4 != 0
+      || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const TG* pg = static_cast<const TG*>(g);
+  const TA* pa = static_cast<const TA*>(a);
+  const dim3 grid(blocks, runs);
+  if (p <= 2) {
+    vecmat_runs_kernel<2, 4><<<grid, kThreads, 0, stream>>>(
+        pg, g_rs, pa, a_rs, out, o_rs, p, d, cw);
+  } else {
+    vecmat_runs_kernel<8, 1><<<grid, kThreads, 0, stream>>>(
+        pg, g_rs, pa, a_rs, out, o_rs, p, d, cw);
+  }
+  return cudaGetLastError();
+}
+
 template <typename TX, typename TY>
-cudaError_t launch_rank1(const void* x, const void* y, float* out, int p,
+cudaError_t launch_rank1(const void* x, long long x_rs, const void* y,
+                         long long y_rs, float* out, int runs, int p,
                          long long d, cudaStream_t stream) {
-  const dim3 grid(grid_cols(d), static_cast<unsigned>(p < 65535 ? p : 65535));
+  if (runs < 1 || runs > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(grid_cols(d), static_cast<unsigned>(p < 65535 ? p : 65535),
+                  static_cast<unsigned>(runs));
   rank1_kernel<TX, TY><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TY*>(y), out, p, d);
+      static_cast<const TX*>(x), x_rs, static_cast<const TY*>(y), y_rs, out,
+      p, d);
   return cudaGetLastError();
 }
 
@@ -519,8 +633,39 @@ int cut_vecmat(const void* g, int g_bf16, const void* a, int a_bf16,
 
 int cut_rank1(const void* x, int x_bf16, const void* y, int y_bf16,
               float* out, int p, long long d, void* stream) {
-  return static_cast<int>(CUT_DISPATCH(launch_rank1, x_bf16, y_bf16, x, y,
-                                       out, p, d,
+  return static_cast<int>(CUT_DISPATCH(launch_rank1, x_bf16, y_bf16, x, 0LL,
+                                       y, 0LL, out, 1, p, d,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+// The batched forms: `runs` problems in one launch, each operand at its
+// run stride in elements (0 for an operand the runs share); outputs
+// (runs, p), (runs, d) at row stride o_rs, and (runs, p, d).
+int cut_matvec_runs(const void* a, int a_bf16, long long a_rs, const void* v,
+                    int v_bf16, long long v_rs, float* partial, int* tickets,
+                    float* out, int runs, int p, long long d, int blocks,
+                    long long cw, void* stream) {
+  return static_cast<int>(CUT_DISPATCH(launch_matvec_runs, a_bf16, v_bf16, a,
+                                       a_rs, v, v_rs, partial, tickets, out,
+                                       runs, p, d, blocks, cw,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+int cut_vecmat_runs(const void* g, int g_bf16, long long g_rs, const void* a,
+                    int a_bf16, long long a_rs, float* out, long long o_rs,
+                    int runs, int p, long long d, int blocks, long long cw,
+                    void* stream) {
+  return static_cast<int>(CUT_DISPATCH(launch_vecmat_runs, g_bf16, a_bf16, g,
+                                       g_rs, a, a_rs, out, o_rs, runs, p, d,
+                                       blocks, cw,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+int cut_rank1_runs(const void* x, int x_bf16, long long x_rs, const void* y,
+                   int y_bf16, long long y_rs, float* out, int runs, int p,
+                   long long d, void* stream) {
+  return static_cast<int>(CUT_DISPATCH(launch_rank1, x_bf16, y_bf16, x, x_rs,
+                                       y, y_rs, out, runs, p, d,
                                        static_cast<cudaStream_t>(stream)));
 }
 

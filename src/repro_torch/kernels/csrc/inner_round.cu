@@ -57,6 +57,15 @@
 // the vectors from device memory (above 8 rows v_new is read back from
 // there too).  It takes every P <= kMaxRows and every D.
 //
+// Batched (the sweep engine's run axis, which vmapping the Pallas kernel
+// turns into a grid axis): fused_cut_round_runs puts R rounds into one
+// cooperative launch of blocks x R blocks, grid y the run.  Every operand
+// carries a run stride (0 where the runs share it), each run has its own
+// counter and scratch, and its blocks meet at their own barrier.  The
+// wrapper plans the partition for R runs at once (round_plan's `runs`),
+// holding A's slices on chip only where all R runs' blocks fit resident
+// with their shared memory, and streaming otherwise.
+//
 // No atomics on values: every sum is taken in f32 in a fixed order, so the
 // result is bitwise identical run to run, which the replay and resume
 // contracts rely on.  The counter (one int per stream, 0 between calls,
@@ -199,8 +208,7 @@ __device__ __forceinline__ void wait_count(const int* counter, int target) {
 }
 
 template <typename TA, bool kOnChip>
-__global__ void __launch_bounds__(kThreads, 2)
-fused_round(const RoundArgs g) {
+__device__ __forceinline__ void round_body(const RoundArgs& g) {
   constexpr int V = 16 / sizeof(TA);
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float red[kWarps][kRows];
@@ -440,14 +448,101 @@ fused_round(const RoundArgs g) {
   if (threadIdx.x == 0) *g.counter = 0;
 }
 
+template <typename TA, bool kOnChip>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_round(const RoundArgs g) {
+  round_body<TA, kOnChip>(g);
+}
+
+// Run strides (in elements) of a batched call's operands, 0 for an
+// operand the runs share.
+struct RunStrides {
+  long long a, v, g_other, mask, c, active, s, gamma;
+};
+
+// gridDim.y runs in one cooperative launch: run y reads its operands at
+// their run strides and owns counter y, its (2, P, blocks) scratch and
+// row y of each (runs, D) / (runs, P) output.  Its blocks meet at their
+// own grid barrier (the counter counts gridDim.x arrivals), so each run
+// is the single-run kernel on its own pointers, bit for bit, at this
+// launch's partition of D.
+template <typename TA, bool kOnChip>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_round_runs(const RoundArgs g, const RunStrides rs) {
+  const long long y = blockIdx.y;
+  const long long p = g.p;
+  RoundArgs r = g;
+  r.a = static_cast<const TA*>(g.a) + y * rs.a;
+  r.v = g.v + y * rs.v;
+  r.g_other = g.g_other + y * rs.g_other;
+  r.mask = g.mask + y * rs.mask;
+  r.c = g.c + y * rs.c;
+  r.active = g.active + y * rs.active;
+  r.s = g.s + y * rs.s;
+  r.gamma = g.gamma + y * rs.gamma;
+  r.partial = g.partial + y * 2 * p * gridDim.x;
+  r.counter = g.counter + y;
+  r.v_new = g.v_new + y * g.d;
+  r.cv1 = g.cv1 + y * p;
+  r.s_new = g.s_new + y * p;
+  r.gamma_new = g.gamma_new + y * p;
+  round_body<TA, kOnChip>(r);
+}
+
+template <bool kRuns, typename TA, bool kOnChip>
+const void* kernel_of() {
+  if constexpr (kRuns) {
+    return reinterpret_cast<const void*>(&fused_round_runs<TA, kOnChip>);
+  } else {
+    return reinterpret_cast<const void*>(&fused_round<TA, kOnChip>);
+  }
+}
+
+template <bool kRuns>
 const void* round_kernel(int a_bf16, int on_chip) {
   if (a_bf16) {
-    return on_chip
-        ? reinterpret_cast<const void*>(&fused_round<__nv_bfloat16, true>)
-        : reinterpret_cast<const void*>(&fused_round<__nv_bfloat16, false>);
+    return on_chip ? kernel_of<kRuns, __nv_bfloat16, true>()
+                   : kernel_of<kRuns, __nv_bfloat16, false>();
   }
-  return on_chip ? reinterpret_cast<const void*>(&fused_round<float, true>)
-                 : reinterpret_cast<const void*>(&fused_round<float, false>);
+  return on_chip ? kernel_of<kRuns, float, true>()
+                 : kernel_of<kRuns, float, false>();
+}
+
+// Blocks of `fn` that one SM of the current device holds with `smem`
+// bytes of dynamic shared memory; 0 where it cannot run with that much.
+int occupancy_of(const void* fn, long long smem) {
+  int n = 0;
+  if (smem < 0 || smem > INT32_MAX
+      || cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem)) != cudaSuccess
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &n, fn, kThreads, static_cast<size_t>(smem)) != cudaSuccess) {
+    cudaGetLastError();   // the query's error is its answer, not a fault
+    return 0;
+  }
+  return n;
+}
+
+bool valid_round(int p, long long d, int blocks, long long cw, int a_bf16,
+                 int on_chip, long long smem) {
+  return p >= 1 && p <= kMaxRows && d >= 1 && blocks >= 1 && cw >= 8
+         && cw % 8 == 0 && static_cast<long long>(blocks - 1) * cw < d
+         && static_cast<long long>(blocks) * cw >= d && smem <= INT32_MAX
+         && smem >= layout_of(p, cw, a_bf16 ? 2 : 4, on_chip).total;
+}
+
+// One cooperative launch of `fn` with `params`; the launch's error.
+int launch_round(const void* fn, void** params, dim3 grid, long long smem,
+                 void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess) {
+    err = cudaLaunchCooperativeKernel(fn, grid, dim3(kThreads), params,
+                                      static_cast<size_t>(smem),
+                                      static_cast<cudaStream_t>(stream));
+  }
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
@@ -459,21 +554,14 @@ long long fused_cut_round_scratch(int p, int blocks) {
   return 2LL * p * blocks;
 }
 
-// Blocks of the kernel (A's type, branch) that one SM of the current
-// device holds with `smem` bytes of dynamic shared memory; 0 where the
-// kernel cannot run with that much.
-int fused_cut_round_occupancy(int a_bf16, int on_chip, long long smem) {
-  const void* fn = round_kernel(a_bf16, on_chip);
-  int n = 0;
-  if (smem < 0 || smem > INT32_MAX
-      || cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem)) != cudaSuccess
-      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &n, fn, kThreads, static_cast<size_t>(smem)) != cudaSuccess) {
-    cudaGetLastError();   // the query's error is its answer, not a fault
-    return 0;
-  }
-  return n;
+// Blocks of the kernel (A's type, branch; the batched kernel when `runs`)
+// that one SM of the current device holds with `smem` bytes of dynamic
+// shared memory; 0 where the kernel cannot run with that much.
+int fused_cut_round_occupancy(int a_bf16, int on_chip, long long smem,
+                              int runs) {
+  return occupancy_of(runs ? round_kernel<true>(a_bf16, on_chip)
+                           : round_kernel<false>(a_bf16, on_chip),
+                      smem);
 }
 
 // `counter`: an int that is 0 between calls, one per stream; `scratch`:
@@ -487,26 +575,45 @@ int fused_cut_round(const void* a, int a_bf16, const float* v,
                     int blocks, long long cw, int on_chip, long long smem,
                     float eta_z, float eta_s, float eta_dual, float rho2,
                     void* stream) {
-  if (p < 1 || p > kMaxRows || d < 1 || blocks < 1 || cw < 8 || cw % 8 != 0
-      || static_cast<long long>(blocks - 1) * cw >= d
-      || static_cast<long long>(blocks) * cw < d || smem > INT32_MAX
-      || smem < layout_of(p, cw, a_bf16 ? 2 : 4, on_chip).total) {
+  if (!valid_round(p, d, blocks, cw, a_bf16, on_chip, smem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RoundArgs args{a, v, g_other, mask, c, active, s, gamma, scratch,
                  counter, v_new, cv1, s_new, gamma_new, p, d, cw,
                  Steps{eta_z, eta_s, eta_dual, rho2}};
   void* params[] = {&args};
-  const void* fn = round_kernel(a_bf16, on_chip);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess) {
-    err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads),
-                                      params, static_cast<size_t>(smem),
-                                      static_cast<cudaStream_t>(stream));
+  return launch_round(round_kernel<false>(a_bf16, on_chip), params,
+                      dim3(blocks), smem, stream);
+}
+
+// `runs` rounds in one cooperative launch, blocks x runs blocks in all
+// (the caller checks they fit resident: the launch refuses a grid that
+// does not).  Operands at their run strides (`strides`: a, v, g_other,
+// mask, c, active, s, gamma, in elements); `counters`: runs ints, 0
+// between calls; `scratch`: runs x fused_cut_round_scratch(p, blocks)
+// floats; outputs (runs, d) and (runs, p), contiguous.
+int fused_cut_round_runs(const void* a, int a_bf16, const float* v,
+                         const float* g_other, const float* mask,
+                         const float* c, const float* active, const float* s,
+                         const float* gamma, const long long* strides,
+                         float* scratch, int* counters, float* v_new,
+                         float* cv1, float* s_new, float* gamma_new,
+                         int runs, int p, long long d, int blocks,
+                         long long cw, int on_chip, long long smem,
+                         float eta_z, float eta_s, float eta_dual, float rho2,
+                         void* stream) {
+  if (!valid_round(p, d, blocks, cw, a_bf16, on_chip, smem) || runs < 1
+      || runs > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  RoundArgs args{a, v, g_other, mask, c, active, s, gamma, scratch,
+                 counters, v_new, cv1, s_new, gamma_new, p, d, cw,
+                 Steps{eta_z, eta_s, eta_dual, rho2}};
+  RunStrides rs{strides[0], strides[1], strides[2], strides[3], strides[4],
+                strides[5], strides[6], strides[7]};
+  void* params[] = {&args, &rs};
+  return launch_round(round_kernel<true>(a_bf16, on_chip), params,
+                      dim3(blocks, runs), smem, stream);
 }
 
 }  // extern "C"

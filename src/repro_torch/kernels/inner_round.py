@@ -25,6 +25,15 @@ of D whose part of A the kernel holds in shared memory across its one
 grid-wide barrier when the slices fit (A is then read from device memory
 once), and streams from device memory when they do not.  The autograd
 Function around it is `ops.FusedRound`.
+
+R rounds at once take every operand with a leading run axis (A (R, P,
+D), the vectors (R, D), the rows (R, P); each run's slice contiguous,
+the run stride free, so an operand shared by `expand` is not copied) and
+return every output with it.  On the card that is one cooperative launch
+of the batched kernel (`LAUNCHES["fused_round_runs"]`), planned for the R
+runs together: A stays on chip only where R x blocks fit resident with
+their shared memory.  Each run is the single-run kernel at that plan's
+partition of D, bit for bit.
 """
 from __future__ import annotations
 
@@ -103,64 +112,78 @@ def round_smem(p: int, cw: int, elem_size: int, on_chip: bool) -> int:
 
 
 def round_plan(p: int, d: int, elem_size: int, sms: int,
-               occupancy: Callable[[bool, int], int]) -> RoundPlan:
-    """The launch for A (P, D) with `elem_size`-byte entries on a card of
-    `sms` SMs, where `occupancy(on_chip, smem)` is the number of blocks
-    of that branch an SM holds with `smem` bytes (0 if none).  On chip
-    where the slices fit at two blocks per SM, else at one; else
-    streaming.  Every block's slice starts at a multiple of 8 columns, so
-    the slices of v, g_other, mask and v_new stay 16-byte aligned; the
-    cooperative launch needs every block resident at once."""
+               occupancy: Callable[[bool, int], int],
+               runs: int = 1) -> RoundPlan:
+    """The launch for `runs` rounds of A (P, D) with `elem_size`-byte
+    entries on a card of `sms` SMs, where `occupancy(on_chip, smem)` is
+    the number of blocks of that branch an SM holds with `smem` bytes (0
+    if none); `blocks` is per run.  On chip where the runs' slices fit at
+    two blocks per SM, else at one; else streaming.  Every block's slice
+    starts at a multiple of 8 columns, so the slices of v, g_other, mask
+    and v_new stay 16-byte aligned; the cooperative launch needs every
+    block of every run resident at once, so a plan that cannot be raises
+    here rather than hang the barrier."""
     if not 1 <= p <= MAX_ROWS:
         raise ValueError(f"fused_cut_round: {p} cut rows, the kernel takes "
                          f"1 to {MAX_ROWS}")
+    if runs < 1:
+        raise ValueError(f"fused_cut_round: {runs} runs")
     for on_chip in (True, False):
         for per_sm in (2, 1):
-            g = min(per_sm * sms, max(1, -(-d // MIN_COLS)))
+            g = min(max(1, per_sm * sms // runs), max(1, -(-d // MIN_COLS)))
             cw = (-(-d // g) + 7) // 8 * 8
             blocks = -(-d // cw)
             smem = round_smem(p, cw, elem_size, on_chip)
-            if occupancy(on_chip, smem) * sms >= blocks:
+            if occupancy(on_chip, smem) * sms >= blocks * runs:
                 return RoundPlan(blocks, cw, on_chip, smem)
-    raise ValueError(f"fused_cut_round: no launch of ({p}, {d}) fits the "
-                     "card")
+    raise ValueError(f"fused_cut_round: no launch of {runs} x ({p}, {d}) "
+                     "fits the card")
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(device_index: int, p: int, d: int, elem_size: int) -> RoundPlan:
+def _plan(device_index: int, p: int, d: int, elem_size: int,
+          runs: int = 1) -> RoundPlan:
     lib = build.load()
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     with torch.cuda.device(device_index):
         return round_plan(
             p, d, elem_size, sms,
             lambda on_chip, smem: lib.fused_cut_round_occupancy(
-                int(elem_size == 2), int(on_chip), smem))
+                int(elem_size == 2), int(on_chip), smem, int(runs > 1)),
+            runs)
 
 
 def plan_for(a) -> RoundPlan:
-    """The launch `fused_cut_round` makes for the CUDA matrix `a`."""
-    return _plan(a.device.index, a.shape[0], a.shape[1], a.element_size())
+    """The launch `fused_cut_round` makes for the CUDA matrix `a`, (P, D)
+    or, batched, (R, P, D)."""
+    runs = a.shape[0] if a.dim() == 3 else 1
+    return _plan(a.device.index, a.shape[-2], a.shape[-1], a.element_size(),
+                 runs)
 
 
 def _check(a, vectors, rows):
-    if a.dim() != 2 or a.shape[0] == 0 or a.shape[1] == 0:
+    batched = a.dim() == 3
+    if a.dim() not in (2, 3) or 0 in a.shape:
         raise ValueError(f"fused_cut_round: matrix of shape "
                          f"{tuple(a.shape)}")
     if a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_cut_round: matrix dtype {a.dtype} is not "
                         "f32 or bf16")
-    p, d = a.shape
+    p, d = a.shape[-2:]
+    lead = tuple(a.shape[:1]) if batched else ()
     for n, group in ((d, vectors), (p, rows)):
         for name, t in group.items():
             if t.dtype != torch.float32:
                 raise TypeError(f"fused_cut_round: {name} dtype {t.dtype} "
                                 "is not f32")
-            if t.dim() != 1 or t.shape[0] != n:
+            if tuple(t.shape) != lead + (n,):
                 raise ValueError(f"fused_cut_round: {name} of shape "
-                                 f"{tuple(t.shape)}, expected ({n},)")
+                                 f"{tuple(t.shape)}, expected "
+                                 f"{lead + (n,)}")
     for name, t in {"a": a, **vectors, **rows}.items():
-        if not t.is_contiguous():
-            raise ValueError(f"fused_cut_round: {name} is not contiguous")
+        if not (t[0] if batched else t).is_contiguous():
+            raise ValueError(f"fused_cut_round: {name} is not contiguous"
+                             + (" within a run" if batched else ""))
         if t.device != a.device:
             raise ValueError(f"fused_cut_round: {name} on {t.device}, the "
                              f"matrix on {a.device}")
@@ -168,29 +191,57 @@ def _check(a, vectors, rows):
 
 def fused_cut_round(a, v, g_other, mask, c, active, s, gamma, *,
                     eta_z: float, eta_s: float, eta_dual: float,
-                    rho2: float):
+                    rho2: float, plan: RoundPlan = None):
     """One fused level-2 cut round -> (v_new (D,), cv1, s_new, gamma_new
-    (P,)), all f32.  A is f32 or bf16; every other operand f32."""
+    (P,)), all f32.  A is f32 or bf16; every other operand f32.  With a
+    leading run axis on every operand, R rounds at once.  `plan` replaces
+    the planned launch of a single round (e.g. a batched call's, to
+    compare one run with it bit for bit)."""
     _check(a, {"v": v, "g_other": g_other, "mask": mask},
            {"c": c, "active": active, "s": s, "gamma": gamma})
     kw = dict(eta_z=eta_z, eta_s=eta_s, eta_dual=eta_dual, rho2=rho2)
     if a.device.type == "cpu":
         return fused_cut_round_ref(a, v, g_other, mask, c, active, s,
                                    gamma, **kw)
+    ins = (v, g_other, mask, c, active, s, gamma)
+    if a.dim() == 3 and a.shape[0] == 1:
+        return tuple(o[None] for o in fused_cut_round(
+            a[0], *(t[0] for t in ins), **kw))
     lib = build.load()
-    p, d = a.shape
+    p, d = a.shape[-2:]
     with torch.cuda.device(a.device):
-        plan = plan_for(a)
+        if a.dim() == 2:
+            plan = plan or plan_for(a)
+            lead = ()
+        else:
+            plan = plan_for(a)
+            lead = (a.shape[0],)
+        runs = a.shape[0] if lead else 1
 
         def out(n):
-            return torch.empty((n,), dtype=torch.float32, device=a.device)
-        scratch = out(lib.fused_cut_round_scratch(p, plan.blocks))
+            return torch.empty(lead + (n,), dtype=torch.float32,
+                               device=a.device)
+        scratch = torch.empty(
+            (runs * lib.fused_cut_round_scratch(p, plan.blocks),),
+            dtype=torch.float32, device=a.device)
         v_new, cv1, s_new, gamma_new = out(d), out(p), out(p), out(p)
-        _kern._launch(
-            "fused_round", lib.fused_cut_round, a.data_ptr(),
-            _kern._bf16(a), *(t.data_ptr() for t in (
-                v, g_other, mask, c, active, s, gamma, scratch,
-                _kern._ticket(a), v_new, cv1, s_new, gamma_new)),
-            p, d, plan.blocks, plan.cw, int(plan.on_chip), plan.smem,
-            eta_z, eta_s, eta_dual, rho2, _kern._stream(a))
-    return v_new, cv1, s_new, gamma_new
+        outs = (v_new, cv1, s_new, gamma_new)
+        shape = (p, d, plan.blocks, plan.cw, int(plan.on_chip), plan.smem,
+                 eta_z, eta_s, eta_dual, rho2, _kern._stream(a))
+        if not lead:
+            _kern._launch(
+                "fused_round", lib.fused_cut_round, a.data_ptr(),
+                _kern._bf16(a), *(t.data_ptr() for t in ins),
+                scratch.data_ptr(), _kern._ticket(a).data_ptr(),
+                *(t.data_ptr() for t in outs), *shape)
+        else:
+            strides = torch.tensor(
+                [_kern._runs_stride(t) for t in (a, *ins)],
+                dtype=torch.int64)
+            _kern._launch(
+                "fused_round_runs", lib.fused_cut_round_runs, a.data_ptr(),
+                _kern._bf16(a), *(t.data_ptr() for t in ins),
+                strides.data_ptr(), scratch.data_ptr(),
+                _kern._ticket(a, runs).data_ptr(),
+                *(t.data_ptr() for t in outs), runs, *shape)
+    return outs

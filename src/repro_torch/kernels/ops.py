@@ -68,17 +68,23 @@ def fused_cut_round(a, v, g_other, mask, c, active, s, gamma, *,
 
 
 class FusedRound(torch.autograd.Function):
-    """The fused round with any-order derivatives.
+    """The fused round with any-order derivatives and a batching rule.
 
-    Forward: `inner_round.fused_cut_round` (the kernel on CUDA tensors).
-    Backward: the same round recomputed from the saved inputs on the
-    `cut_ad` MV/VM Functions and differentiated by autograd, the
-    counterpart of the reference's `custom_jvp` whose tangents run the
-    primitive decomposition (`repro/kernels/ops.py:120-156`).  Under
-    `create_graph=True` the recomputation stays attached to the inputs'
-    graph, so grad-of-grad runs on the cut kernels too; a gradient with
-    respect to A goes through `cut_ad.OUTER`.  The step scalars take no
-    gradient."""
+    Forward: `inner_round.fused_cut_round` (the kernel on CUDA tensors;
+    one round, or R at once with a leading run axis).  Backward: a
+    `torch.func.vjp` of the same round recomputed from the saved inputs
+    on the `cut_ad` MV/VM Functions; jvp: a `torch.func.jvp` of it.
+    These are the counterpart of the reference's `custom_jvp`, whose
+    tangents run the primitive decomposition
+    (`repro/kernels/ops.py:120-156`).  Under `create_graph=True` or an
+    outer `torch.func` transform the recomputation stays attached to the
+    inputs, so grad-of-grad and forward-over-reverse run on the cut
+    kernels too; a derivative with respect to A goes through
+    `cut_ad.OUTER`.  vmap: every operand's run axis first (a shared
+    operand broadcast at run stride 0) and one batched kernel launch for
+    all R runs.  The step scalars take no derivative and cannot be
+    batched: they are kernel arguments, as they are static arguments of
+    the reference's kernel."""
 
     @staticmethod
     def forward(a, v, g_other, mask, c, active, s, gamma, eta_z, eta_s,
@@ -90,26 +96,52 @@ class FusedRound(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(*inputs[:8])
+        ctx.save_for_forward(*inputs[:8])
         ctx.steps = inputs[8:]
+
+    @staticmethod
+    def _math(ctx, *ins):
+        return _round.fused_round_math(cut_ad.MV.apply, cut_ad.VM.apply,
+                                       *ins, *ctx.steps)
 
     @staticmethod
     def backward(ctx, *cts):
         need = ctx.needs_input_grad[:8]
-        create = torch.is_grad_enabled()
-        # with create_graph the saved inputs keep their history, so the
-        # gradients below are differentiable w.r.t. what made them
-        ins = [x if create else x.detach().requires_grad_(n)
-               for x, n in zip(ctx.saved_tensors, need)]
-        wrt = [x for x, n in zip(ins, need) if n]
-        with torch.enable_grad():
-            # every output depends on every input, so all four carry a
-            # graph whenever backward runs
-            outs = _round.fused_round_math(
-                cut_ad.MV.apply, cut_ad.VM.apply, *ins, *ctx.steps)
-            grads = torch.autograd.grad(outs, wrt, cts, create_graph=create)
-        it = iter(grads)
-        return (*(next(it) if n else None for n in need),
+        ins = ctx.saved_tensors
+        wrt = [i for i, n in enumerate(need) if n]
+
+        def round_of(*xs):
+            full = list(ins)
+            for i, x in zip(wrt, xs):
+                full[i] = x
+            return FusedRound._math(ctx, *full)
+
+        # every output depends on every input, so no cotangent is unused
+        _, pullback = torch.func.vjp(round_of, *(ins[i] for i in wrt))
+        grads = iter(pullback(tuple(ct.contiguous() for ct in cts)))
+        return (*(next(grads) if n else None for n in need),
                 None, None, None, None)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        ins = ctx.saved_tensors
+        tans = tuple(torch.zeros_like(x) if t is None else t
+                     for x, t in zip(ins, tangents[:8]))
+        return torch.func.jvp(lambda *xs: FusedRound._math(ctx, *xs),
+                              ins, tans)[1]
+
+    @staticmethod
+    def vmap(info, in_dims, a, v, g_other, mask, c, active, s, gamma,
+             eta_z, eta_s, eta_dual, rho2):
+        if any(d is not None for d in in_dims[8:]):
+            raise ValueError("fused_cut_round: the step sizes cannot be "
+                             "batched (swept); they are kernel arguments")
+        n = info.batch_size
+        ranks = (2, 1, 1, 1, 1, 1, 1, 1)
+        operands = (cut_ad.batch_front(x, d, n, k) for x, d, k in zip(
+            (a, v, g_other, mask, c, active, s, gamma), in_dims, ranks))
+        return (FusedRound.apply(*operands, eta_z, eta_s, eta_dual, rho2),
+                (0, 0, 0, 0))
 
 
 # ---------------------------------------------------------------------------

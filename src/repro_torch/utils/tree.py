@@ -100,35 +100,21 @@ def tree_index(tree, j):
 
 
 # ---------------------------------------------------------------------------
-# autograd over trees
+# derivatives over trees
 # ---------------------------------------------------------------------------
 
-def grad_point(tree, keep_graph: bool = False):
-    """The point to differentiate at, as fresh graph nodes: a gradient
-    w.r.t. them is the partial derivative at this point, even where
-    other inputs of the function (a dual computed from the same
-    variables) were derived from the same tensors.  With `keep_graph`, a
-    leaf that already carries a graph stays attached to it (through a
-    view), so the gradient can itself be differentiated w.r.t. what the
-    leaf depends on; every other leaf is detached."""
-    def prep(x):
-        if keep_graph and x.requires_grad:
-            return x.view_as(x)
-        return x.detach().requires_grad_(True)
-    return tree_map(prep, tree)
+def grad(fn, *args):
+    """The gradient of the scalar fn(*args) w.r.t. every argument tree, a
+    tuple of trees shaped as `args` (zeros where fn does not depend on a
+    leaf), by `torch.func.grad`, as the reference takes `jax.grad`: a
+    partial derivative at the arguments whatever else fn closes over,
+    itself differentiable by any outer transform or autograd, and
+    composable with `torch.func.vmap`."""
+    return torch.func.grad(fn, argnums=tuple(range(len(args))))(*args)
 
 
-def tree_grad(out, trees, create_graph: bool = False):
-    """d out / d (each tree): one gradient tree per input tree, zeros
-    where `out` does not depend on a leaf."""
-    flat = [tree_flatten(t) for t in trees]
-    leaves = [l for ls, _ in flat for l in ls]
-    gs = torch.autograd.grad(out, leaves, create_graph=create_graph,
-                             allow_unused=True)
-    gs = [torch.zeros_like(l) if g is None else g
-          for l, g in zip(leaves, gs)]
-    res, i = [], 0
-    for ls, tdef in flat:
-        res.append(tree_unflatten(tdef, gs[i:i + len(ls)]))
-        i += len(ls)
-    return res
+def value_and_grad(fn, *args):
+    """(fn(*args), `grad(fn, *args)`) in one evaluation."""
+    grads, val = torch.func.grad_and_value(
+        fn, argnums=tuple(range(len(args))))(*args)
+    return val, grads

@@ -533,3 +533,82 @@ def test_curvature_through_the_cut_kernels(cuda):
     mu = estimate_mu(fn(a), v, torch.Generator().manual_seed(0),
                      n_samples=4)
     assert float(mu) > 0
+
+
+# ---------------------------------------------------------------------------
+# the sweep engine: batched kernels and a swept run
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("r,p,d", [(2, 8, 242_628), (3, 2, 925_590),
+                                   (4, 3, 33), (2, 13, 5001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_kernels_are_the_single_run_kernels_row_by_row(cuda, r, p,
+                                                               d, dtype):
+    ops_ = [_operands(p, d, 10 * k + p, dtype, cuda) for k in range(r)]
+    a, v, g, y = (torch.stack(x) for x in zip(*ops_))
+    kern.reset_launches()
+    got = (kern.matvec(a, v), kern.vecmat(g, a), kern.rank1(g, y))
+    assert dict(kern.LAUNCHES) == {"matvec_runs": 1, "vecmat_runs": 1,
+                                   "rank1_runs": 1}
+    assert int(kern._ticket(a, r).abs().sum()) == 0
+    tol = F32 if dtype == torch.float32 else BF16
+    for out, want in zip(got, (kern.matvec_ref(a, v),
+                               kern.vecmat_ref(g, a),
+                               kern.rank1_ref(g, y))):
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                                   **tol)
+    for k in range(r):
+        assert torch.equal(got[0][k], kern.matvec(a[k], v[k]))
+        assert torch.equal(got[1][k], kern.vecmat(g[k], a[k]))
+        assert torch.equal(got[2][k], kern.rank1(g[k], y[k]))
+    # a shared operand at run stride 0
+    shared = kern.matvec(a, v[0].expand(v.shape))
+    for k in range(r):
+        assert torch.equal(shared[k], kern.matvec(a[k], v[0]))
+
+
+@pytest.mark.parametrize("r", [2, 4])
+def test_batched_fused_round_rows_at_its_plan(cuda, r):
+    """White wine: two runs hold A on chip, four stream it; each row is
+    the single-run kernel at the batched plan's partition."""
+    rounds = [_round_operands(8, 242_628, 7 + k, torch.float32, cuda)
+              for k in range(r)]
+    o = {k: torch.stack([x[k] for x in rounds]) for k in ROUND_ARGS}
+    kw = dict(zip(("eta_z", "eta_s", "eta_dual", "rho2"), STEPS))
+    plan = inner_round.plan_for(o["a"])
+    assert plan.on_chip == (r == 2)
+    kern.reset_launches()
+    got = inner_round.fused_cut_round(*(o[k] for k in ROUND_ARGS), **kw)
+    assert dict(kern.LAUNCHES) == {"fused_round_runs": 1}
+    want = inner_round.fused_cut_round_ref(*(o[k] for k in ROUND_ARGS), **kw)
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), **F32)
+    for k in range(r):
+        one = inner_round.fused_cut_round(*(o[n][k] for n in ROUND_ARGS),
+                                          plan=plan, **kw)
+        assert all(torch.equal(x[k], y) for x, y in zip(got, one))
+
+
+def test_sweep_launches_only_batched_kernels(cuda):
+    from repro_torch.apps.robust_hpo import default_hyper
+    from repro_torch.apps.robust_hpo import make_robust_hpo_problem
+    task = make_robust_hpo_problem("diabetes", n_workers=4, seed=0,
+                                   device=cuda)
+    for fused in (False, True):
+        hyper = default_hyper(task, 4, 3, 10, use_fused_inner=fused)
+        spec = RunSpec(problem=task.problem, hyper=hyper, n_iterations=12,
+                       metrics_every=6,
+                       scheduler=StragglerConfig(4, 3, 10, n_stragglers=1))
+        kern.reset_launches()
+        swept = run(dataclasses.replace(spec, engine="sweep", seeds=(0, 1)))
+        launched = dict(kern.LAUNCHES)
+        assert launched["matvec_runs"] > 0 and launched["vecmat_runs"] > 0
+        assert ("fused_round_runs" in launched) == fused
+        assert not {"matvec", "vecmat", "fused_round"} & set(launched)
+        for k, seed in enumerate((0, 1)):
+            one = run(dataclasses.replace(spec, scheduler=StragglerConfig(
+                4, 3, 10, n_stragglers=1, seed=seed)))
+            np.testing.assert_allclose(swept.run(k).history["gap_sq"],
+                                       one.history["gap_sq"], rtol=1e-4)
+            assert list(swept.run(k).history["n_cuts_ii"]) == \
+                list(one.history["n_cuts_ii"])

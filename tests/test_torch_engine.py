@@ -149,7 +149,6 @@ def test_entry_points_need_cuda_unless_told_cpu():
 
 
 @pytest.mark.parametrize("change,exc", [
-    (dict(engine="sweep"), NotImplementedError),
     (dict(engine="async"), NotImplementedError),
     (dict(engine="warp"), ValueError),
     (dict(mesh=object()), NotImplementedError),

@@ -1,9 +1,12 @@
 """The port's paper evaluation (`repro_torch.experiments`) against the
 reference's scripts (`benchmarks/`) on identical inputs, on the CPU.
 
-The reference runs its methods and seeds on the scan engine (Fig. 1 and
-2) or as one swept dispatch (Table 2, the rate and comm checks); the
-port runs each on the scan engine, one after another.  Simulated times
+Here the reference runs its methods and seeds on the scan engine (Fig.
+1 and 2) or as one swept dispatch (Table 2, the rate and comm checks);
+the port runs Fig. 1, Fig. 2 and Table 2 on its scan engine, one run
+after another (`engine="scan"`), and the rate check as one sweep, its
+default.  tests/test_torch_sweep.py holds the port's default sweeps to
+the reference's swept scripts.  Simulated times
 and cut counts must be equal, histories within rtol 1e-4 (Fig. 2 with
 atol 1e-6, as tests/test_torch_fused.py's domain-adaptation trajectory),
 Table 2's mean x3 within 1e-4, and what the scripts derive from equal
@@ -93,7 +96,7 @@ def fig1_rows():
                                     engine="scan")
         got_runs = _recording(mp, runner)
         got = fig1_robust_hpo.run_dataset("diabetes", n_iterations=20,
-                                          device="cpu",
+                                          engine="scan", device="cpu",
                                           w0=_ref_w0("diabetes"))
     return got, want, got_runs, want_runs
 
@@ -172,7 +175,8 @@ def fig2_rows():
         want = ref_fig2.run_direction("mnist_pretrain", 4, engine="scan")
         got_runs = _recording(mp, runner)
         got = fig2_domain_adapt.run_direction("mnist_pretrain", 4,
-                                              device="cpu", x_init=x_init)
+                                              engine="scan", device="cpu",
+                                              x_init=x_init)
     return got, want, got_runs, want_runs
 
 
@@ -285,14 +289,14 @@ def test_rate_main_matches_reference(quad_data):
                               data=quad_data)
     assert _derived(got) == _derived(want)
     sweep, = want_runs
-    assert len(got_runs) == 2
-    for r, g in enumerate(got_runs):
-        w = sweep.run(r).history
-        np.testing.assert_allclose(g.history["gap_sq"],
-                                   np.asarray(w["gap_sq"]), rtol=1e-4,
-                                   atol=1e-5)
+    got_sweep, = got_runs
+    assert got_sweep.n_runs == 2
+    for r in range(2):
+        g, w = got_sweep.run(r).history, sweep.run(r).history
+        np.testing.assert_allclose(g["gap_sq"], np.asarray(w["gap_sq"]),
+                                   rtol=1e-4, atol=1e-5)
         for k in ("sim_time", "n_cuts_i", "n_cuts_ii"):
-            assert list(g.history[k]) == list(np.asarray(w[k])), k
+            assert list(g[k]) == list(np.asarray(w[k])), k
 
 
 def test_comm_main_matches_reference(quad_data):
@@ -350,14 +354,3 @@ def test_entry_points_need_cuda_unless_told_cpu(name):
         pytest.skip("a CUDA device is present: the default device exists")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ENTRY_POINTS[name]()
-
-
-@pytest.mark.parametrize("fn", [
-    lambda: fig1_robust_hpo.run_dataset("diabetes", 1, engine="sweep",
-                                        device="cpu"),
-    lambda: fig2_domain_adapt.run_direction("mnist_pretrain", 1,
-                                            engine="sweep", device="cpu"),
-], ids=["fig1", "fig2"])
-def test_sweep_engine_is_not_ported_yet(fn):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        fn()
