@@ -119,6 +119,30 @@ file; exits non-zero, printing no result, without them.  Phases:
    kernels must not launch in a sweep).  `engine_speed.sweep_record`
    (R = 4 white-wine runs, 30 iterations) is printed, not gated, and 20
    swept white-wine iterations are profiled with the other profiles.
+12. Streams, chunked runs and checkpoints, through `run(RunSpec(...))`
+   only.  (a) The registry's streamed quadratic problem
+   (src/repro/fed/runtime/problems.py:99-145; N=4, S=3, tau=5, one 5x
+   straggler, K=3, P=6, t_pre=5) at dim 16,384, cut space (6, 180,224),
+   A's scale held at the registry's operator norm (0.3 sqrt(3 / dim)):
+   every iteration draws a fresh (A, b) per worker on the card (4.3 GB),
+   60 iterations on the cut-kernel and the plain route, histories within
+   rtol 1e-4 and cut counts exact, the multipliers and whether a cut
+   binds, ms per iteration and the device time of one iteration's batch
+   (CUDA events around `next_batch`); the same run in chunks [0, 23, 60]
+   bit for bit.  (b) Phase 4's white wine on the cut-kernel and the
+   fused route, 120 iterations recorded every iteration: unchunked, in
+   chunks [0, 37, 80, 120] (`chunk_size`, a `chunk_hook` writing
+   `repro_torch.checkpoint.save_checkpoint` at each boundary), and
+   resumed from the step-80 checkpoint loaded into a fresh `init_state`,
+   final states and histories (all but host_time) bit for bit; on a
+   difference a second unchunked run tells a nondeterministic route from
+   a chunking fault.  (c) (a) as a sweep of 2 (schedule seeds 0 and 1,
+   one shared stream), each row held to its serial streamed run as in
+   phase 11, through the batched kernels only.  (d) The launches of
+   `matvec`, `vecmat`, `fused_round` and the `*_runs` kernels on (a)-(c)
+   (each must launch; the kernel line's `launches_phase12`),
+   `engine_speed.streamed_record` (printed, not gated), the phase's time,
+   and 20 streamed iterations profiled with the other profiles.
 
 The line before the nvidia-smi line is a JSON object listing every
 ported kernel; the last line is the JSON result.
@@ -127,6 +151,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import platform
 import subprocess
@@ -2196,6 +2221,382 @@ def sweep_phase(rows, ww_specs):
                                   n_stragglers=1, seed=0))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: streams, chunked runs and checkpoints
+# ---------------------------------------------------------------------------
+
+STREAM_DIM = 16_384
+STREAM_WORKERS = 4
+STREAM_ITERATIONS = 60
+# the quadratic's cut space at p_max = 6: (a1, a2, a3) of dim each and the
+# workers' (b2, b3) blocks
+STREAM_SHAPE = (6, 3 * STREAM_DIM + 2 * STREAM_WORKERS * STREAM_DIM)
+STREAM_CHUNKS = (0, 23, 60)
+# white wine's 120 iterations, boundaries off the t_pre = 10 stride
+WW_CHUNKS = (0, 37, 80, 120)
+WW_RESUME = 80
+
+
+def stream_scales(dim, b_unit=False):
+    """(A scale, b scale) holding the registry's norms at dim 3 (A at 0.3,
+    b at 1 per entry): at 0.3 and dim 16,384, ||A^T A|| ~ 5,900 and the
+    x3 step (eta_x = 0.05) diverges within a few iterations.  `b_unit`
+    keeps b at 1 per entry."""
+    s = (3 / dim) ** 0.5
+    return 0.3 * s, 1.0 if b_unit else s
+
+
+def quadratic_stream_setup(dim=STREAM_DIM, b_unit=False):
+    """The registry's `quadratic` problem and `quadratic_stream`
+    (src/repro/fed/runtime/problems.py:99-145) at width `dim` on the card,
+    at `stream_scales`: (problem, hyper, scheduler config, stream).  Each
+    worker's static row and each stream row is its own generator's
+    draw."""
+    import torch
+    from repro_torch.core import Hyper, StragglerConfig, TrilevelProblem
+    from repro_torch.data import stream as stream_lib
+
+    n = STREAM_WORKERS
+    a_scale, b_scale = stream_scales(dim, b_unit)
+
+    def sample(key, device):
+        g = stream_lib.generator(key, device)
+        return {"A": torch.randn((dim, dim), generator=g,
+                                 device=device).mul_(a_scale),
+                "b": torch.randn((dim,), generator=g,
+                                 device=device).mul_(b_scale)}
+
+    rows = [sample(j, "cuda") for j in range(n)]
+    data = {k: torch.stack([r[k] for r in rows]) for k in ("A", "b")}
+    del rows
+
+    def f1(d, x1, x2, x3):
+        return torch.sum((x1 - d["A"] @ x3 - d["b"]) ** 2)
+
+    def f2(d, x1, x2, x3):
+        return torch.sum((x2 + x3) ** 2) + 0.1 * torch.sum(x2 ** 2)
+
+    def f3(d, x1, x2, x3):
+        return torch.sum((x3 - x1) ** 2) + 0.1 * torch.sum((x3 - x2) ** 2)
+
+    def zeros():
+        return torch.zeros(dim, device="cuda")
+
+    problem = TrilevelProblem(f1=f1, f2=f2, f3=f3, data=data, n_workers=n,
+                              x1_init=zeros(), x2_init=zeros(),
+                              x3_init=zeros())
+    hyper = Hyper(n_workers=n, s_active=n - 1, tau=5, k_inner=3, p_max=6,
+                  t_pre=5, t1=100, eta_x=0.05, eta_z=0.05, d1=dim)
+    cfg = StragglerConfig(n_workers=n, s_active=n - 1, tau=5,
+                          n_stragglers=1, straggler_slowdown=5.0, seed=0)
+    # the registry's stream key is its own, apart from the data's seed
+    return problem, hyper, cfg, stream_lib.make_stream(sample, n, 1000)
+
+
+def run_in_chunks(spec, schedule, bounds, hook=None):
+    """`spec` over `schedule` as state-continued `run(RunSpec)` calls over
+    `bounds`, each one chunk (`chunk_size` = its length) whose
+    `chunk_hook` is `hook`: (result with the stitched history,
+    launches, seconds)."""
+    from repro_torch.core import RunSpec
+
+    state, parts, launches, secs = spec.state, [], {}, 0.0
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        res, dt, got = timed_run(dataclasses.replace(
+            spec, schedule=schedule.slice(a, b), state=state,
+            chunk_size=b - a, chunk_hook=hook))
+        state, secs = res.state, secs + dt
+        parts.append(dict(res.history, t=res.history["t"] + a))
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    history = {k: np.concatenate([h[k] for h in parts]) for k in parts[0]}
+    return (type(res)(state=state, history=history), launches, secs)
+
+
+def bitwise_diffs(got, want, offset=0):
+    """Names of the state leaves and history keys (all but t and
+    host_time, from row `offset` of `want`'s) that differ in any bit."""
+    import torch
+    from repro_torch.utils.tree import tree_flatten
+
+    out = []
+    la, _ = tree_flatten(got.state)
+    lb, _ = tree_flatten(want.state)
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if not (x.dtype == y.dtype and torch.equal(x, y)):
+            out.append(f"state leaf {i}")
+    for k, v in got.history.items():
+        if k in ("t", "host_time"):
+            continue
+        if not np.array_equal(v, want.history[k][offset:offset + len(v)]):
+            out.append(f"history {k}")
+    return out
+
+
+def check_bitwise(label, got, want, rerun, offset=0):
+    """`got` equals `want` bit for bit; on a difference, a second run of
+    `want` (`rerun()`) tells a nondeterministic route from a chunking
+    fault before the phase fails."""
+    diffs = bitwise_diffs(got, want, offset)
+    if diffs:
+        again = bitwise_diffs(rerun(), want)
+        fail(f"{label}: differs from the unchunked run in {diffs[:6]}; a "
+             "second unchunked run " + (f"differs too, in {again[:6]}: the "
+                                        "route is not deterministic"
+                                        if again else "is bitwise equal"))
+    print(f"  {label}: bitwise equal to the unchunked run (final state, "
+          f"{len(got.history['gap_sq'])} history rows)", flush=True)
+
+
+def batch_ms(stream, t_hats):
+    """Device ms and host ms per `next_batch` call at each row of
+    `t_hats`, CUDA events around each call."""
+    import torch
+    from repro_torch.data import stream as stream_lib
+
+    dev, host = [], []
+    for t_hat in t_hats:
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        batch = stream_lib.next_batch(stream, t_hat, device="cuda")
+        e.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(s.elapsed_time(e))
+        del batch
+    return float(np.median(dev)), float(np.median(host))
+
+
+BIND_DIM = 4_096
+
+
+def binding_part(launches):
+    """(a') The streamed quadratic at dim 4,096 with b at the registry's
+    1 per entry, where a level-2 cut binds (gamma_k > 0): the cut-kernel
+    and fused-kernel routes held to their plain routes on histories, cut
+    counts, and the final cut rows, gamma_k and level-2 inner state."""
+    from repro_torch.core import RunSpec, StragglerScheduler
+
+    problem, hyper, cfg, stream = quadratic_stream_setup(BIND_DIM,
+                                                         b_unit=True)
+    schedule = StragglerScheduler(cfg).precompute(STREAM_ITERATIONS)
+    fused = dataclasses.replace(hyper, use_fused_inner=True)
+    hypers = {"plain": dataclasses.replace(hyper, cut_impl="ref"),
+              "kernel": hyper,
+              "fused_plain": dataclasses.replace(fused, cut_impl="ref"),
+              "fused": fused}
+    res = {}
+    for name, hy in hypers.items():
+        res[name] = timed_run(RunSpec(
+            problem=problem, hyper=hy, schedule=schedule, metrics_every=5,
+            data=stream, engine="scan"))
+    print(f"  (a') streamed quadratic, dim {BIND_DIM:,}, b at 1 per entry, "
+          f"{STREAM_ITERATIONS} iterations, ms/iteration: " + ", ".join(
+              f"{k} {v[1] / STREAM_ITERATIONS * 1e3:.3f}"
+              for k, v in res.items()), flush=True)
+    for k in ("gap_sq", "n_cuts_i", "n_cuts_ii"):
+        print(f"    {k:9s} " + " ".join(
+            f"{x:.6g}" for x in res["kernel"][0].history[k]))
+    for name, ref in (("kernel", "plain"), ("fused", "fused_plain"),
+                      ("fused_plain", "plain")):
+        got, want = res[name][0], res[ref][0]
+        compare_routes(f"(a') {name} vs {ref}", got.history, want.history,
+                       ("gap_sq",), 1e-4)
+        diffs = final_state_diffs(got.state, want.state)
+        print(f"    {name} vs {ref} final state (max |diff| / max |entry|):"
+              " " + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
+        for k, v in diffs.items():
+            check(v <= STATE_RTOL, f"(a') {name} vs {ref} final {k}: "
+                  f"{v:.2e} of the largest entry > {STATE_RTOL}")
+    for name, (r, _, _) in res.items():
+        print_multipliers(f"(a') {name}", r.state)
+        check(float(r.state.gamma_k.max()) > 0,
+              f"(a') no level-2 cut binds on the {name} route")
+    for name in ("plain", "fused_plain"):
+        check(sum(res[name][2].values()) == 0,
+              f"(a') the {name} route launched {res[name][2]}")
+    launches["(a') binding, cut kernels"] = res["kernel"][2]
+    launches["(a') binding, fused kernel"] = res["fused"][2]
+    check(res["fused"][2].get("fused_round", 0) > 0,
+          "(a') fused_round never launched on the fused route")
+
+
+def streamed_part(launches):
+    """(a) the streamed quadratic on the cut-kernel and the plain route,
+    and in chunks; returns (kernel-route spec, scheduler config, its
+    result)."""
+    from repro_torch.core import RunSpec, StragglerScheduler
+
+    problem, hyper, cfg, stream = quadratic_stream_setup()
+    schedule = StragglerScheduler(cfg).precompute(STREAM_ITERATIONS)
+    spec = RunSpec(problem=problem, hyper=hyper, schedule=schedule,
+                   metrics_every=1, data=stream, engine="scan")
+    plain_spec = dataclasses.replace(
+        spec, hyper=dataclasses.replace(hyper, cut_impl="ref"))
+    timed_run(dataclasses.replace(spec, schedule=schedule.slice(0, 3)))
+    kern, k_s, k_launch = timed_run(spec)
+    plain, p_s, p_launch = timed_run(plain_spec)
+    a_shape = tuple(kern.state.cuts_ii.a.shape)
+    check(a_shape == STREAM_SHAPE, f"streamed cut matrix {a_shape} != "
+          f"{STREAM_SHAPE}")
+    h = kern.history
+    print(f"  (a) streamed quadratic, N={STREAM_WORKERS}, dim "
+          f"{STREAM_DIM:,}, cut matrix {a_shape}, A and b scales "
+          f"{stream_scales(STREAM_DIM)}, {STREAM_ITERATIONS} iterations: "
+          f"cut kernels {k_s / STREAM_ITERATIONS * 1e3:.3f} ms/iteration, "
+          f"plain {p_s / STREAM_ITERATIONS * 1e3:.3f}", flush=True)
+    for k in ("gap_sq", "n_cuts_i", "n_cuts_ii"):
+        print(f"    {k:9s} " + " ".join(f"{x:.6g}" for x in h[k][9::10]))
+    compare_routes("(a) streamed kernel vs plain", h, plain.history,
+                   ("gap_sq",), 1e-4)
+    check(sum(p_launch.values()) == 0,
+          f"the plain streamed route launched {p_launch}")
+    for k in ("matvec", "vecmat"):
+        check(k_launch.get(k, 0) > 0,
+              f"{k} never launched on the streamed run")
+    launches["(a) streamed, cut kernels"] = k_launch
+    st = kern.state
+    print_multipliers("(a) streamed", st)
+    bound = float(st.lam.max()) > 0 or float(st.gamma_k.max()) > 0 or \
+        float(st.inner2.gamma.max()) > 0
+    print(f"    a cut binds on the streamed run: {'yes' if bound else 'no'}"
+          f" (lam, gamma_k or inner2.gamma above 0)", flush=True)
+
+    t_hats = [np.full(STREAM_WORKERS, t) for t in range(5)]
+    dev_ms, host_ms = batch_ms(stream, t_hats)
+    print(f"    batch synthesis: {dev_ms:.3f} ms device, {host_ms:.3f} ms "
+          f"host per iteration ({STREAM_WORKERS} x {STREAM_DIM:,}^2 f32, "
+          f"{STREAM_WORKERS * STREAM_DIM ** 2 * 4 / 1e9:.2f} GB; median "
+          "of 5, CUDA events around next_batch)", flush=True)
+
+    chunked, _, _ = run_in_chunks(spec, schedule, STREAM_CHUNKS)
+    check_bitwise(f"(a) streamed run in chunks {list(STREAM_CHUNKS)}",
+                  chunked, kern, lambda: timed_run(spec)[0])
+    return spec, cfg, kern
+
+
+def checkpoint_part(ww_specs, launches, tmp):
+    """(b) white wine on the cut-kernel and fused routes: unchunked, in
+    chunks with a checkpoint at each boundary, and resumed from the
+    step-80 checkpoint into a fresh template, all bit for bit."""
+    from repro_torch import checkpoint
+    from repro_torch.core import StragglerScheduler, afto
+
+    for name in ("kernel", "fused"):
+        spec = ww_specs[name]
+        schedule = StragglerScheduler(spec.scheduler).precompute(
+            N_ITERATIONS)
+        spec = dataclasses.replace(spec, schedule=schedule, scheduler=None,
+                                   metrics_every=1, metrics_fn=None)
+        full, f_s, f_launch = timed_run(spec)
+        directory = str(Path(tmp) / name)
+        saved = []
+
+        def save(state, t_abs):
+            saved.append(int(state.t))
+            checkpoint.save_checkpoint(directory, state, int(state.t))
+
+        chunked, c_launch, c_s = run_in_chunks(spec, schedule, WW_CHUNKS,
+                                               save)
+        check(saved == list(WW_CHUNKS[1:]),
+              f"(b) {name}: checkpoints at {saved}")
+        rerun = lambda: timed_run(spec)[0]  # noqa: E731
+        check_bitwise(f"(b) white wine, {name} route, in chunks "
+                      f"{list(WW_CHUNKS)}", chunked, full, rerun)
+        template = afto.init_state(spec.problem, spec.hyper)
+        state = checkpoint.load_checkpoint(directory, template, WW_RESUME)
+        resumed, r_s, _ = timed_run(dataclasses.replace(
+            spec, schedule=schedule.slice(WW_RESUME, N_ITERATIONS),
+            state=state))
+        check_bitwise(f"(b) white wine, {name} route, resumed from the "
+                      f"step-{WW_RESUME} checkpoint", resumed, full, rerun,
+                      offset=WW_RESUME)
+        print(f"  (b) white wine {name}: unchunked "
+              f"{f_s / N_ITERATIONS * 1e3:.3f} ms/iteration, in chunks "
+              f"{c_s / N_ITERATIONS * 1e3:.3f} (3 checkpoints), resumed "
+              f"{r_s / (N_ITERATIONS - WW_RESUME) * 1e3:.3f}; checkpoint "
+              f"files {sorted(p.name for p in Path(directory).iterdir())}",
+              flush=True)
+        launches[f"(b) white wine, {name}, in chunks"] = c_launch
+    for k in ("matvec", "vecmat"):
+        check(launches["(b) white wine, kernel, in chunks"].get(k, 0) > 0,
+              f"(b) {k} never launched on the chunked cut-kernel route")
+    check(launches["(b) white wine, fused, in chunks"].get(
+        "fused_round", 0) > 0, "(b) fused_round never launched on the "
+          "chunked fused route")
+
+
+def streamed_sweep_part(spec, cfg, serial0, launches):
+    """(c) the streamed quadratic as a sweep of 2 (schedule seeds 0 and
+    1, one shared stream), each row held to its serial streamed run."""
+    from repro_torch.core import runner
+
+    spec = dataclasses.replace(spec, schedule=None,
+                               n_iterations=STREAM_ITERATIONS)
+    with metered_runs() as serial:
+        runner.run(dataclasses.replace(
+            spec, scheduler=dataclasses.replace(cfg, seed=1)))
+    with metered_runs() as runs:
+        runner.run(dataclasses.replace(spec, engine="sweep", seeds=(0, 1),
+                                       scheduler=cfg))
+    check_sweep_rows("(c) streamed sweep of 2, seeds 0 and 1", runs[0],
+                     [{"result": serial0, "seconds": float("nan")},
+                      serial[0]])
+    launches["(c) streamed sweep"] = runs[0]["launches"]
+
+
+def stream_phase(rows, ww_specs):
+    """Phase 12: returns the streamed spec to profile."""
+    import tempfile
+
+    import torch
+    from repro_torch.experiments import engine_speed
+
+    t0 = time.perf_counter()
+    # earlier phases may leave cyclic garbage that still holds device
+    # tensors; phase 12 draws 4-9 GB a batch
+    gc.collect()
+    print(f"  device memory allocated at the start: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    launches, peaks = {}, {}
+
+    def part(label, fn, *args):
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args)
+        peaks[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out
+
+    spec, cfg, kern = part("(a)", streamed_part, launches)
+    part("(a')", binding_part, launches)
+    with tempfile.TemporaryDirectory(prefix="phase12_ckpt_") as tmp:
+        part("(b)", checkpoint_part, ww_specs, launches, tmp)
+    part("(c)", streamed_sweep_part, spec, cfg, kern, launches)
+    del kern
+    print("  peak device memory allocated, GiB: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in peaks.items()), flush=True)
+    for label, got in launches.items():
+        print(f"  launches, {label}: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(got.items())), flush=True)
+    totals = {}
+    for got in launches.values():
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+    for k in KERNELS:
+        rows[k]["launches_phase12"] = int(totals.get(k, 0))
+    for k in ("matvec", "vecmat", "fused_round", "matvec_runs",
+              "vecmat_runs"):
+        check(totals.get(k, 0) > 0, f"phase 12: {k} never launched")
+    record = engine_speed.streamed_record(100, reps=1, device="cuda")
+    print("  engine_speed.streamed_record (quickstart, 100 iterations, not "
+          f"gated): {json.dumps(record['streamed'])}", flush=True)
+    print(f"phase 12 (streams, chunked runs and checkpoints): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dataclasses.replace(spec, schedule=None, scheduler=cfg)
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch is not beside chip_smoke.py: run it from a "
@@ -2223,12 +2624,15 @@ def main() -> None:
     xlstm_phase(rows)
     profiled = paper_phase()
     sweep_spec = sweep_phase(rows, ww_specs)
+    stream_spec = stream_phase(rows, ww_specs)
     # under the profiler after every timed run: it slows later host
     # launches
     for label, run in profiled.items():
         profile_run(label, run)
     profile_phase("white-wine sweep of 2 (AFTO, seeds 0 and 1), batched "
                   "cut kernels (two refreshes)", sweep_spec)
+    profile_phase(f"streamed quadratic, dim {STREAM_DIM:,}, cut kernels "
+                  "(four refreshes)", stream_spec)
     print("ms/iteration, mean of two runs per route: white-wine "
           + ", ".join(f"{k} {v:.3f}" for k, v in ww_ms.items())
           + "; domain adaptation "

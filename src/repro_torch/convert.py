@@ -6,6 +6,10 @@ are handed over as numpy arrays, or anything `np.asarray` accepts, and
 come back as numpy for comparison.  No jax import is needed; a reference
 state is read by its field names, which the port's dataclasses share.
 
+Streams: the port cannot draw the reference's `jax.random` batches, so
+`stream_from_reference` hands them over as a table, each worker row
+keyed by (iteration, worker), behind a port `Stream`.
+
 bf16: `np.array` of a JAX bf16 array has the `ml_dtypes` bfloat16 dtype,
 which torch refuses; such a leaf crosses as its 16-bit patterns viewed
 as `torch.bfloat16`, so the numbers do not change.  Coming back, a bf16
@@ -19,6 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.cuts import spec_from_templates
+from repro_torch.data import stream as stream_lib
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
 from repro_torch.core.types import (AFTOState, FlatCuts, InnerState2,
                                     InnerState3, StaleView)
 
@@ -95,3 +101,28 @@ def state_from_reference(ref, device) -> AFTOState:
         return cls(**kw)
 
     return build(AFTOState, ref)
+
+
+def stream_from_reference(batches, device="cpu"):
+    """A port `Stream` (seed 0) that gives the reference's batches.
+
+    `batches[it]` is the reference's (N, ...) batch of iteration `it`
+    (`repro.data.stream.next_batch(stream, it)`, as numpy).  Worker j's
+    row of it is stored under the port's key `worker_key(0, it, j)`,
+    and the stream's sampler looks rows up by key, so the port's engines
+    draw exactly the reference's row wherever the reference folds on
+    (it, j).  A key outside the table raises `KeyError`."""
+    table = {}
+    n_workers = None
+    for it, batch in enumerate(batches):
+        rows = to_torch(batch, device)
+        leaves, tdef = tree_flatten(rows)
+        n_workers = int(leaves[0].shape[0])
+        for j in range(n_workers):
+            table[stream_lib.worker_key(0, it, j)] = tree_unflatten(
+                tdef, [x[j] for x in leaves])
+
+    def sample(key, device):
+        return table[key]
+
+    return stream_lib.make_stream(sample, n_workers, 0)

@@ -6,7 +6,7 @@ from repro_torch.core.afto import (afto_step, afto_step_aux,
                                    afto_step_from_grads, cut_refresh,
                                    init_state, local_f1_grads)
 from repro_torch.core.engine import (RunResult, SweepResult, record_slots,
-                                     run_scanned, run_swept)
+                                     run_chunked, run_scanned, run_swept)
 from repro_torch.core.runner import RunSpec, run
 from repro_torch.core.scheduler import (Schedule, StragglerConfig,
                                         StragglerScheduler)

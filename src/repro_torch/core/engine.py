@@ -1,9 +1,9 @@
 """Trajectory engines: a whole single-device AFTO run, or R of them at
 once, as one host loop.
 
-Counterpart of `repro/core/engine.py` `run_scanned` and `run_swept`
-(single device, static data).  The reference compiles the trajectory
-into one `lax.scan`, and a sweep into one `jax.vmap` of it; here each
+Counterpart of `repro/core/engine.py` `run_scanned`, `run_chunked` and
+`run_swept` (single device).  The reference compiles the trajectory into
+one `lax.scan`, and a sweep into one `jax.vmap` of it; here each
 iteration is eager PyTorch on the device, and the loop keeps the device
 free of host round trips:
 
@@ -16,10 +16,24 @@ free of host round trips:
     cut operator and cut values, recomputed only after a refresh;
   * recorded values stay on the device until the run ends.
 
+`data=` replaces `problem.data` with other arrays, or with a
+`repro_torch.data.stream.Stream`: each iteration's worker batches are
+then drawn on the device, worker j's row keyed on its pre-step
+consumption time `state.stale.t_hat[j]`, and the step, the refresh and
+the recorded gap of that iteration all see the same batch.  The engine
+keeps a host mirror of `t_hat`, read from the state once a call and
+advanced from the host's arrival masks as the step advances the state's
+(`afto.afto_step_aux`), so drawing a batch needs no device sync.  Both
+the refresh predicate and the batches key on absolute counters carried
+by the state, so `run_chunked`, any chunk partition of a run into
+state-continued calls, gives the unchunked run bit for bit.
+
 `run_swept` runs R trajectories in the same loop through
 `torch.func.vmap` of the same step, refresh and record, every state leaf
 with a leading run axis: every cut contraction and fused round is one
 batched kernel launch for all R runs (`kernels.cut_ad`'s vmap rules).
+A stream is shared by the runs: each run draws its batch at its own
+`t_hat` mirror, outside the transform.
 """
 from __future__ import annotations
 
@@ -35,7 +49,9 @@ from repro_torch.core import afto as afto_lib
 from repro_torch.core import stationarity as stat_lib
 from repro_torch.core.scheduler import Schedule
 from repro_torch.core.types import AFTOState, Hyper, TrilevelProblem
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.data import stream as stream_lib
+from repro_torch.data.stream import Stream
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -101,38 +117,91 @@ def record(problem: TrilevelProblem, hyper: Hyper, state: AFTOState,
     return vals
 
 
+def _check_stream(stream: Stream, hyper: Hyper) -> None:
+    if stream.spec is None:
+        raise ValueError("Stream has no spec; build it with "
+                         "repro_torch.data.stream.make_stream")
+    if stream.spec.n_workers != hyper.n_workers:
+        raise ValueError(
+            f"the stream spans {stream.spec.n_workers} workers but "
+            f"hyper.n_workers={hyper.n_workers}")
+
+
+def problem_device(problem: TrilevelProblem) -> torch.device:
+    """The device the problem's tensors live on (its runs run there)."""
+    return tree_leaves(problem.x1_init)[0].device
+
+
+def bind_data(problem: TrilevelProblem, hyper: Hyper, data):
+    """(problem, stream): `data` arrays replace `problem.data` (as
+    tensors on the problem's device); a `Stream` is checked and returned
+    for the engine to draw from."""
+    if data is None:
+        return problem, None
+    if isinstance(data, Stream):
+        _check_stream(data, hyper)
+        return problem, data
+    device = problem_device(problem)
+    return dataclasses.replace(problem, data=tree_map(
+        lambda x: torch.as_tensor(x if torch.is_tensor(x) else np.array(x),
+                                  device=device), data)), None
+
+
+def advance_t_hat(t_hat: np.ndarray, active: np.ndarray,
+                  t_post) -> np.ndarray:
+    """The host mirror of `state.stale.t_hat` after a step: a worker whose
+    update arrived was handed the post-step point, as in `afto_step_aux`
+    (`t_hat = where(active > 0, t + 1, t_hat)`)."""
+    return np.where(np.asarray(active) > 0, np.asarray(t_post)[..., None]
+                    if np.ndim(t_post) else t_post, t_hat)
+
+
 def run_scanned(problem: TrilevelProblem, hyper: Hyper, schedule: Schedule,
                 metrics_fn: Optional[Callable] = None,
                 metrics_every: int = 10,
-                state: Optional[AFTOState] = None) -> RunResult:
+                state: Optional[AFTOState] = None,
+                data=None) -> RunResult:
     """Run the AFTO trajectory over `schedule`.
 
     The history holds numpy arrays keyed by t / sim_time / host_time /
     gap_sq / n_cuts_i / n_cuts_ii / max_staleness plus any `metrics_fn`
     keys (whose values are 0-d tensors).  `host_time` is prorated from
     the run's total, as in the reference.  A `state` continues a run:
-    the refresh predicate keys on the absolute iteration count."""
+    the refresh predicate keys on the absolute iteration count, and a
+    stream on each worker's absolute consumption time.
+
+    data: replacement `problem.data` arrays, or a `Stream` whose batches
+    are drawn each iteration at the workers' pre-step `t_hat`."""
     n_iterations = schedule.n_iterations
+    problem, stream = bind_data(problem, hyper, data)
     if state is None:
         state = afto_lib.init_state(problem, hyper)
     device = state.lam.device
     record_its, slots = record_slots(n_iterations, metrics_every)
-    masks = torch.as_tensor(schedule.active, dtype=torch.float32,
-                            device=device)
+    active = np.asarray(schedule.active)
+    masks = torch.as_tensor(active, dtype=torch.float32, device=device)
     rows = []
 
     t_start = time.perf_counter()
     t_abs = int(state.t)
+    t_hat = None if stream is None else \
+        state.stale.t_hat.cpu().numpy().astype(np.int64)
+    prob = problem
     with torch.no_grad():
         for it in range(n_iterations):
-            state, aux = afto_lib.afto_step_aux(problem, hyper, state,
+            if stream is not None:
+                prob = problem      # let the last batch go before the next
+                prob = dataclasses.replace(problem, data=stream_lib.next_batch(
+                    stream, t_hat, device=device))
+                t_hat = advance_t_hat(t_hat, active[it], t_abs + 1)
+            state, aux = afto_lib.afto_step_aux(prob, hyper, state,
                                                 masks[it])
             t_abs += 1
             refreshed = refresh_due(hyper, t_abs)
             if refreshed:
-                state = afto_lib.cut_refresh(problem, hyper, state)
+                state = afto_lib.cut_refresh(prob, hyper, state)
             if slots[it] >= 0:
-                rows.append(record(problem, hyper, state, metrics_fn,
+                rows.append(record(prob, hyper, state, metrics_fn,
                                    aux=None if refreshed else aux))
         history = {k: torch.stack([r[k].float() for r in rows])
                    .cpu().numpy() for k in rows[0]}
@@ -144,6 +213,67 @@ def run_scanned(problem: TrilevelProblem, hyper: Hyper, schedule: Schedule,
         schedule.max_staleness)[record_its].astype(np.float64)
     history["host_time"] = elapsed * (record_its + 1) / n_iterations
     return RunResult(state=state, history=history)
+
+
+def _stitch_histories(parts, offsets, elapsed_offsets) -> Dict:
+    """Per-chunk histories as one record of absolute iterations: "t"
+    shifts by each chunk's start, `host_time` adds the time spent before
+    the chunk."""
+    out: Dict = {}
+    for k in parts[0]:
+        segs = []
+        for h, off, el in zip(parts, offsets, elapsed_offsets):
+            v = np.asarray(h[k])
+            if k == "t":
+                v = v + off
+            elif k == "host_time":
+                v = v + el
+            segs.append(v)
+        out[k] = np.concatenate(segs)
+    return out
+
+
+def run_chunked(problem: TrilevelProblem, hyper: Hyper, schedule: Schedule,
+                chunk_size: int,
+                chunk_hook: Optional[Callable] = None,
+                metrics_fn: Optional[Callable] = None,
+                metrics_every: int = 10,
+                state: Optional[AFTOState] = None,
+                data=None) -> RunResult:
+    """`run_scanned` split into state-continued calls of `chunk_size`
+    iterations, with `chunk_hook(state, t_abs)` called on the live state
+    at every chunk boundary, the final one included (`t_abs` counts the
+    iterations of `schedule` run so far).
+
+    The hook may return a replacement state (None keeps it): the seam to
+    push state out (write a checkpoint, ship cut rows to a master) and
+    pull state in before the next chunk.  A hook that returns None gives
+    the unchunked run bit for bit: the refresh predicate and the streamed
+    batches key on the state's absolute counters.
+
+    The history records per chunk (every `metrics_every`-th iteration of
+    the chunk and its last), stitched to absolute iterations."""
+    n_iterations = schedule.n_iterations
+    chunk_size = max(1, int(chunk_size))
+    parts, offsets, elapsed = [], [], []
+    spent = 0.0
+    for a in range(0, n_iterations, chunk_size):
+        b = min(a + chunk_size, n_iterations)
+        res = run_scanned(problem, hyper, schedule.slice(a, b),
+                          metrics_fn=metrics_fn,
+                          metrics_every=metrics_every, state=state,
+                          data=data)
+        state = res.state
+        parts.append(res.history)
+        offsets.append(a)
+        elapsed.append(spent)
+        spent += float(res.history["host_time"][-1])
+        if chunk_hook is not None:
+            replacement = chunk_hook(state, b)
+            if replacement is not None:
+                state = replacement
+    return RunResult(state=state,
+                     history=_stitch_histories(parts, offsets, elapsed))
 
 
 # ---------------------------------------------------------------------------
@@ -192,10 +322,10 @@ def _stack_runs(tree, n_runs: int, device, what: str):
     """A private copy of a caller's (R,)-leading tree on `device`."""
     def copy(x):
         if not (torch.is_tensor(x) or isinstance(x, np.ndarray)):
-            raise NotImplementedError(
-                f"run_swept: {what} leaf of type {type(x).__name__}: only "
-                "tensors and arrays are taken; streamed data is not ported "
-                "yet (ROADMAP.md Queue 1, item 4)")
+            raise ValueError(
+                f"run_swept: {what} leaf of type {type(x).__name__}: the "
+                "leaves must be tensors or arrays (streamed data is a "
+                "Stream in place of the whole data tree)")
         x = torch.as_tensor(x, device=device)
         if x.shape[:1] != (n_runs,):
             raise ValueError(f"swept {what} leaves need a leading "
@@ -224,7 +354,11 @@ def run_swept(problem: TrilevelProblem, hyper: Hyper,
                    caller's tensors are never changed.
       data         optional replacement for `problem.data` with a leading
                    (R,) axis per leaf (per-seed datasets), copied to the
-                   problem's device.  Streams are not ported yet.
+                   problem's device; or a `Stream`, shared by the runs:
+                   each run draws its batch at its own `t_hat` mirror,
+                   the data a `run_scanned(data=stream)` of its schedule
+                   sees, and the (R, N, ...) batch rides the vmapped
+                   step as per-run data.
       sweep_hypers {Hyper field: (R,) values}: each run's value rides its
                    step as a 0-d tensor.  Shape-determining fields
                    (n_workers/p_max/k_inner/d1) cannot be swept, nor,
@@ -252,7 +386,7 @@ def run_swept(problem: TrilevelProblem, hyper: Hyper,
             raise ValueError(
                 "all swept schedules must share n_iterations/n_workers")
     swept = _check_sweep_hypers(hyper, sweep_hypers, n_runs)
-    device = tree_leaves(problem.x1_init)[0].device
+    device = problem_device(problem)
 
     if states is None:
         st0 = afto_lib.init_state(problem, hyper)
@@ -261,7 +395,11 @@ def run_swept(problem: TrilevelProblem, hyper: Hyper,
             st0)
     else:
         state = _stack_runs(states, n_runs, device, "state")
-    if data is not None:
+    stream = None
+    if isinstance(data, Stream):
+        _check_stream(data, hyper)
+        stream, data = data, None
+    elif data is not None:
         data = _stack_runs(data, n_runs, device, "data")
     values = {k: torch.as_tensor(
         v, dtype=torch.float32 if v.dtype.kind == "f" else torch.int64,
@@ -270,18 +408,24 @@ def run_swept(problem: TrilevelProblem, hyper: Hyper,
     t_pre = np.broadcast_to(swept.get("t_pre", hyper.t_pre), (n_runs,))
     t1 = np.broadcast_to(swept.get("t1", hyper.t1), (n_runs,))
     t_abs = state.t.cpu().numpy().astype(np.int64)
-
-    dims = (0 if values else None, 0 if data is not None else None)
+    t_hat = None if stream is None else \
+        state.stale.t_hat.cpu().numpy().astype(np.int64)
 
     def bind(fn):
-        """fn(problem, hyper, state, *rest) vmapped over the runs."""
+        """fn(problem, hyper, state, *rest) vmapped over the runs, called
+        as (run_data, state, *rest)."""
         def one(vals, run_data, st, *rest):
             prob = problem if run_data is None else \
                 dataclasses.replace(problem, data=run_data)
             # each run's swept values ride as 0-d tensors
             return fn(prob, dataclasses.replace(hyper, **vals), st, *rest)
-        return lambda *args, rest_dims=(): torch.func.vmap(
-            one, in_dims=dims + (0,) + rest_dims)(values, data, *args)
+
+        def call(run_data, *args, rest_dims=()):
+            dims = (0 if values else None,
+                    None if run_data is None else 0, 0) + rest_dims
+            return torch.func.vmap(one, in_dims=dims)(values, run_data,
+                                                      *args)
+        return call
 
     step = bind(afto_lib.afto_step_aux)
     refresh = bind(afto_lib.cut_refresh)
@@ -289,19 +433,25 @@ def run_swept(problem: TrilevelProblem, hyper: Hyper,
                                                  aux=aux))
 
     record_its, slots = record_slots(n_iterations, metrics_every)
-    masks = torch.as_tensor(np.stack([s.active for s in schedules], 1),
-                            dtype=torch.float32, device=device)
+    active = np.stack([np.asarray(s.active) for s in schedules], 1)
+    masks = torch.as_tensor(active, dtype=torch.float32, device=device)
     rows = []
     t_start = time.perf_counter()
     with torch.no_grad():
         for it in range(n_iterations):
-            state, aux = step(state, masks[it], rest_dims=(0,))
+            if stream is not None:
+                # drawn outside vmap, which refuses random ops; the last
+                # batch goes first
+                data = None
+                data = stream_lib.next_batch(stream, t_hat, device=device)
+                t_hat = advance_t_hat(t_hat, active[it], t_abs + 1)
+            state, aux = step(data, state, masks[it], rest_dims=(0,))
             t_abs += 1
             due = (t_abs % t_pre == 0) & (t_abs - 1 < t1)
             if due.all():
-                state = refresh(state)
+                state = refresh(data, state)
             elif due.any():
-                fresh = refresh(state)
+                fresh = refresh(data, state)
                 keep = torch.as_tensor(due, device=device)
                 state = pytree.tree_map(
                     lambda new, old: torch.where(
@@ -310,9 +460,9 @@ def run_swept(problem: TrilevelProblem, hyper: Hyper,
             if slots[it] >= 0:
                 # a refresh rewrote the polytope: the gap recomputes the
                 # step's cut products (for every run: same numbers)
-                rows.append(rec(state, None, rest_dims=(None,))
+                rows.append(rec(data, state, None, rest_dims=(None,))
                             if due.any() else
-                            rec(state, aux, rest_dims=(0,)))
+                            rec(data, state, aux, rest_dims=(0,)))
         history = {k: torch.stack([r[k].float() for r in rows], 1)
                    .cpu().numpy() for k in rows[0]}
     elapsed = time.perf_counter() - t_start

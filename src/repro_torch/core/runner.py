@@ -1,21 +1,27 @@
 """Run dispatcher behind the `RunSpec` API.
 
 Counterpart of `repro/core/runner.py`.  `run(RunSpec(...))` is the
-canonical entry; this slice of the port carries three engines:
+canonical entry; this port carries three engines:
 
   "scan"   (default) materialize the straggler schedule up front and
            drive the trajectory through `engine.run_scanned`, which keeps
-           the device free of per-iteration host round trips.
+           the device free of per-iteration host round trips; with
+           `chunk_size` set the trajectory splits into state-continued
+           calls with `chunk_hook` called on the live state at every
+           chunk boundary (`engine.run_chunked`).
   "sweep"  R whole trajectories (per-seed schedules, per-run states,
-           data and hypers) through one vmapped loop
-           (`engine.run_swept`): every kernel launch covers all R runs.
+           data and hypers, or one shared stream) through one vmapped
+           loop (`engine.run_swept`): every kernel launch covers all R
+           runs.
   "eager"  the per-iteration host loop: host-side `metrics_fn`
            callbacks, per-iteration host timestamps, and the live
            scheduler when no schedule is given.
 
-The async engine, worker meshes, chunked runs and replacement or
-streamed data for the single-run engines are later slices of the port
-and raise `NotImplementedError`.
+Every engine takes `data=`: replacement `problem.data` arrays, or a
+`repro_torch.data.stream.Stream` whose worker batches are drawn each
+iteration at the workers' consumption times.  The async engine and
+worker meshes are later slices of the port and raise
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -32,14 +38,14 @@ from repro_torch.core.engine import RunResult, SweepResult
 from repro_torch.core.scheduler import (Schedule, StragglerConfig,
                                         StragglerScheduler)
 from repro_torch.core.types import AFTOState, Hyper, TrilevelProblem
+from repro_torch.data import stream as stream_lib
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves
 
 ENGINES = ("scan", "sweep", "eager")
 # what is not ported yet, and its item in ROADMAP.md Queue 1
 _LATER = {"async": "the async runtime (item 5)"}
-_LATER_FIELDS = {"chunk_size": "chunked runs (item 4)",
-                 "mesh": "the worker-mesh sharded engine (item 6)"}
+_LATER_FIELDS = {"mesh": "the worker-mesh sharded engine (item 6)"}
 _SWEEP_ONLY = ("schedules", "seeds", "sweep_states", "sweep_hypers")
 
 
@@ -48,7 +54,7 @@ class RunSpec:
     """One run, fully specified.
 
       problem / hyper   the trilevel problem and algorithm hypers.
-      engine            "scan" | "eager".
+      engine            "scan" | "sweep" | "eager".
       n_iterations      master iterations T (ignored when `schedule`
                         fixes the length).
       scheduler         `StragglerConfig` for the simulated arrival
@@ -62,13 +68,21 @@ class RunSpec:
       state             initial `AFTOState` (continuation runs).
       sweep_states/sweep_hypers  per-run initial states / swept hyper
                         scalars for engine="sweep".
-      data              engine="sweep": replacement `problem.data` with
-                        a leading (R,) axis per leaf (per-seed data).
-                        The single-run engines take none yet (streams
-                        and replacement data are a later slice).
+      data              replacement `problem.data` arrays (for
+                        engine="sweep" with a leading (R,) axis per
+                        leaf: per-seed data), or a
+                        `repro_torch.data.stream.Stream`, whose batches
+                        are drawn on the device every iteration (shared
+                        by the runs of a sweep).
+      chunk_size        engine="scan": split the trajectory into
+                        state-continued calls of this many iterations.
+      chunk_hook        `(state, t_abs) -> state | None`, called on the
+                        live state at every chunk boundary, the last
+                        included (checkpoints, the push/pull seam);
+                        needs `chunk_size`.
       device            where the run happens; None means CUDA (and
                         raises without it).  The problem must live there.
-      mesh, chunk_size  later slices of the port; must stay None.
+      mesh              a later slice of the port; must stay None.
     """
     problem: TrilevelProblem
     hyper: Hyper
@@ -87,6 +101,7 @@ class RunSpec:
     data: Any = None
     mesh: Any = None
     chunk_size: Optional[int] = None
+    chunk_hook: Optional[Callable] = None
 
     def resolved_scheduler(self) -> StragglerConfig:
         if self.scheduler is not None:
@@ -116,12 +131,11 @@ def run(spec: RunSpec):
             raise NotImplementedError(
                 f"RunSpec.{name}: {what} is not ported yet (ROADMAP.md "
                 "Queue 1)")
+    if spec.chunk_hook is not None and spec.chunk_size is None:
+        raise ValueError("chunk_hook requires chunk_size")
+    if spec.chunk_size is not None and spec.engine != "scan":
+        raise ValueError("chunk_size/chunk_hook require engine='scan'")
     if spec.engine != "sweep":
-        if spec.data is not None:
-            raise NotImplementedError(
-                "RunSpec.data: streams and replacement data for the "
-                f"{spec.engine!r} engine are not ported yet (ROADMAP.md "
-                "Queue 1, item 4); engine='sweep' takes per-run data")
         for name in _SWEEP_ONLY:
             if getattr(spec, name) is not None:
                 raise ValueError(f"RunSpec.{name} is for engine='sweep'")
@@ -138,9 +152,16 @@ def run(spec: RunSpec):
         if schedule is None:
             schedule = StragglerScheduler(spec.resolved_scheduler()) \
                 .precompute(spec.n_iterations)
+        if spec.chunk_size is not None:
+            return engine_lib.run_chunked(
+                spec.problem, spec.hyper, schedule, spec.chunk_size,
+                chunk_hook=spec.chunk_hook, metrics_fn=spec.metrics_fn,
+                metrics_every=spec.metrics_every, state=spec.state,
+                data=spec.data)
         return engine_lib.run_scanned(
             spec.problem, spec.hyper, schedule, metrics_fn=spec.metrics_fn,
-            metrics_every=spec.metrics_every, state=spec.state)
+            metrics_every=spec.metrics_every, state=spec.state,
+            data=spec.data)
     return _run_eager(spec)
 
 
@@ -169,13 +190,17 @@ def _run_sweep(spec: RunSpec) -> SweepResult:
 
 
 def _run_eager(spec: RunSpec) -> RunResult:
-    """The per-iteration host loop (engine="eager")."""
-    problem, hyper = spec.problem, spec.hyper
-    schedule, state = spec.schedule, spec.state
+    """The per-iteration host loop (engine="eager").  A stream's batch is
+    drawn from the state's own `stale.t_hat` (read from the device each
+    iteration, where the scan engine keeps a host mirror), and step,
+    refresh and gap see the same batch, as in the reference's loop."""
+    hyper, schedule, state = spec.hyper, spec.schedule, spec.state
+    problem, stream = engine_lib.bind_data(spec.problem, hyper, spec.data)
     sched = StragglerScheduler(spec.resolved_scheduler())
     if state is None:
         state = afto_lib.init_state(problem, hyper)
     device = state.lam.device
+    prob = problem
 
     hist: Dict[str, List[float]] = {
         "t": [], "sim_time": [], "host_time": [], "gap_sq": [],
@@ -189,11 +214,14 @@ def _run_eager(spec: RunSpec) -> RunResult:
                     float(schedule.sim_time[it])
             else:
                 mask, sim_t = sched.next_active()
+            if stream is not None:
+                prob = dataclasses.replace(problem, data=stream_lib.next_batch(
+                    stream, state.stale.t_hat.tolist(), device=device))
             state = afto_lib.afto_step(
-                problem, hyper, state,
+                prob, hyper, state,
                 torch.as_tensor(mask, dtype=torch.float32, device=device))
             if engine_lib.refresh_due(hyper, t0_abs + it + 1):
-                state = afto_lib.cut_refresh(problem, hyper, state)
+                state = afto_lib.cut_refresh(prob, hyper, state)
             if (it + 1) % spec.metrics_every == 0 \
                     or it == spec.resolved_iterations() - 1:
                 hist["t"].append(it + 1)
@@ -202,7 +230,7 @@ def _run_eager(spec: RunSpec) -> RunResult:
                 hist["max_staleness"].append(float(
                     schedule.max_staleness[it] if schedule is not None
                     else sched.max_staleness()))
-                for k, v in engine_lib.record(problem, hyper, state,
+                for k, v in engine_lib.record(prob, hyper, state,
                                               spec.metrics_fn).items():
                     hist.setdefault(k, []).append(float(v))
     return RunResult(state=state, history=hist)

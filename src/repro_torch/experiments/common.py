@@ -16,17 +16,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import runner
+from repro_torch.core.engine import problem_device
 from repro_torch.core.scheduler import StragglerConfig, StragglerScheduler
 from repro_torch.core.types import Hyper, TrilevelProblem
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import tree_leaves
 
 ENGINES = ("sweep", "scan")
-
-
-def problem_device(problem: TrilevelProblem) -> torch.device:
-    """The device the problem's tensors live on (its runs run there)."""
-    return tree_leaves(problem.x1_init)[0].device
 
 
 def check_engine(engine: str) -> None:

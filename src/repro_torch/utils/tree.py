@@ -1,56 +1,70 @@
 """Pytree helpers over dicts, lists, tuples and tensor leaves.
 
 Leaves are ordered as `jax.tree.leaves` orders them: dict entries by
-SORTED key, sequences in order, `None` as an empty subtree.  The order
-matters: it fixes the column layout of every flattened cut (`FlatSpec`),
-and `torch.utils._pytree` keeps dict insertion order instead (an MLP
-built as w0, b0, w1, b1 would flatten permuted against the reference).
+SORTED key, sequences in order, `None` as an empty subtree, and a node
+registered with `torch.utils._pytree` (the state dataclasses of
+`core.types`) by its children, in field order as the reference registers
+them.  The order matters: it fixes the column layout of every flattened
+cut (`FlatSpec`) and the leaf numbering of a checkpoint, and
+`torch.utils._pytree` keeps dict insertion order instead (an MLP built
+as w0, b0, w1, b1 would flatten permuted against the reference).
 """
 from __future__ import annotations
 
 from typing import Any, List, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
-# A treedef is a hashable nested tuple: ("*",) for a leaf, ("none",),
-# ("dict", keys, children) or ("list"|"tuple", children).
+# A treedef is a nested tuple: ("*",) for a leaf, ("none",),
+# ("dict", keys, children), ("list"|"tuple", children) or ("node", type,
+# context, children) for a registered pytree node.
 _LEAF = ("*",)
 _NONE = ("none",)
 
 
+def _walk(t, leaves: List[Any]) -> tuple:
+    if t is None:
+        return _NONE
+    if isinstance(t, dict):
+        keys = tuple(sorted(t))
+        return ("dict", keys, tuple(_walk(t[k], leaves) for k in keys))
+    if isinstance(t, (list, tuple)):
+        kind = "list" if isinstance(t, list) else "tuple"
+        return (kind, tuple(_walk(x, leaves) for x in t))
+    node = pytree.SUPPORTED_NODES.get(type(t))
+    if node is not None:
+        children, ctx = node.flatten_fn(t)
+        return ("node", type(t), ctx,
+                tuple(_walk(c, leaves) for c in children))
+    leaves.append(t)
+    return _LEAF
+
+
 def tree_flatten(tree) -> Tuple[List[Any], tuple]:
+    # module-level recursion: a nested recursive closure would form a
+    # reference cycle holding the leaves until the cyclic collector runs,
+    # which keeps multi-GB tensors alive on the device
     leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(t):
-        if t is None:
-            return _NONE
-        if isinstance(t, dict):
-            keys = tuple(sorted(t))
-            return ("dict", keys, tuple(walk(t[k]) for k in keys))
-        if isinstance(t, (list, tuple)):
-            kind = "list" if isinstance(t, list) else "tuple"
-            return (kind, tuple(walk(x) for x in t))
-        leaves.append(t)
-        return _LEAF
 
-    tdef = walk(tree)
-    return leaves, tdef
+def _build(d, it) -> Any:
+    if d == _LEAF:
+        return next(it)
+    if d == _NONE:
+        return None
+    if d[0] == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    if d[0] == "node":
+        return pytree.SUPPORTED_NODES[d[1]].unflatten_fn(
+            [_build(c, it) for c in d[3]], d[2])
+    seq = [_build(c, it) for c in d[1]]
+    return seq if d[0] == "list" else tuple(seq)
 
 
 def tree_unflatten(tdef: tuple, leaves) -> Any:
-    it = iter(leaves)
-
-    def build(d):
-        if d == _LEAF:
-            return next(it)
-        if d == _NONE:
-            return None
-        if d[0] == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        seq = [build(c) for c in d[1]]
-        return seq if d[0] == "list" else tuple(seq)
-
-    return build(tdef)
+    return _build(tdef, iter(leaves))
 
 
 def tree_leaves(tree) -> List[Any]:

@@ -152,8 +152,8 @@ def test_entry_points_need_cuda_unless_told_cpu():
     (dict(engine="async"), NotImplementedError),
     (dict(engine="warp"), ValueError),
     (dict(mesh=object()), NotImplementedError),
-    (dict(chunk_size=5), NotImplementedError),
-    (dict(data={"A": np.zeros(1)}), NotImplementedError),
+    (dict(chunk_hook=lambda state, t: None), ValueError),
+    (dict(chunk_size=5, engine="sweep"), ValueError),
 ])
 def test_unported_run_options_raise(change, exc):
     _, tp = quad_problems()
@@ -197,6 +197,7 @@ def test_port_runs_with_jax_unimportable():
         "from repro_torch.core import Hyper, RunSpec, TrilevelProblem, run\n"
         "import repro_torch.apps.robust_hpo, repro_torch.convert\n"
         "import repro_torch.apps.baselines, repro_torch.experiments.run\n"
+        "import repro_torch.checkpoint, repro_torch.data\n"
         "g = torch.Generator().manual_seed(0)\n"
         "data = {'A': torch.randn(4, 3, 3, generator=g) * 0.3,\n"
         "        'b': torch.randn(4, 3, generator=g)}\n"

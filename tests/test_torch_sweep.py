@@ -167,7 +167,7 @@ def test_swept_refresh_predicate_per_run(route):
     (dict(sweep_hypers={"eta_z": [0.1]}), "shape"),
     (dict(sweep_hypers={"rho2": [0.5, 1.0]}, fused=True), "fused round"),
     (dict(data={"A": np.zeros((3, 4, 3, 3))}), "leading"),
-    (dict(data={"A": object()}), "not ported"),
+    (dict(data={"A": object()}), "tensors or arrays"),
 ])
 def test_swept_rejects_bad_inputs(kw, match):
     _, tp = quad_problems()
