@@ -143,6 +143,32 @@ file; exits non-zero, printing no result, without them.  Phases:
    (each must launch; the kernel line's `launches_phase12`),
    `engine_speed.streamed_record` (printed, not gated), the phase's time,
    and 20 streamed iterations profiled with the other profiles.
+13. The async federation runtime (`repro_torch.fed.runtime`), after
+   phase 12.  (a) Phase 4's white wine (its schedule, 120 iterations)
+   replayed through `run(RunSpec(engine="async", schedule=...))` over
+   the in-process transport, six worker threads on the card, on the
+   cut-kernel and the fused route, each held to phase 4's scan run of
+   its route with phase 4's gate (histories within rtol 1e-4; cut
+   counts, sim_time and max_staleness exact; final II-layer cut rows,
+   gamma_k and level-2 inner state within 1e-4 of each tensor's largest
+   entry), ms per master iteration beside phase 4's.  (b) A live run on
+   the kernel route: recorded staleness within tau, its schedule
+   replayed through the runtime bit for bit and through `run_scanned`
+   within (a)'s gate.  (c) (a)'s kernel route checkpointed every 40
+   iterations, stopped after 80 and resumed by a fresh master: bit for
+   bit the uninterrupted run.  (d) `run_chaos_async` on white wine
+   (lossy frames, worker 1 crashing at its 5th push and rejoining):
+   completes, prints its deaths and rejoins, replays bit for bit.  (e)
+   `serve fed --transport tcp --workers 4 --iters 60` with worker
+   processes on the card, plain and `--stream` (its replay gate
+   included), both exit 0; beside them, in this process, a TCP run whose
+   worker 0 is SIGKILLed and respawned with `--epoch 1`, and one with
+   `--max-workers 5` whose late worker 4 widens the run, which replays
+   bit for bit through `run_scanned_elastic`.  (f) The launches of
+   `matvec`, `vecmat` and `fused_round` on (a)-(d) (each must launch;
+   the kernel line's `launches_phase13`), the bytes of a white-wine push
+   frame, and 20 async white-wine iterations profiled with the other
+   profiles.
 
 The line before the nvidia-smi line is a JSON object listing every
 ported kernel; the last line is the JSON result.
@@ -2597,6 +2623,469 @@ def stream_phase(rows, ww_specs):
     return dataclasses.replace(spec, schedule=None, scheduler=cfg)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the async federation runtime
+# ---------------------------------------------------------------------------
+
+ASYNC_CKPT_EVERY = 40
+ASYNC_KILL_AT = 80
+CHAOS_ITERATIONS = 60
+FED_ITERATIONS = 60
+# the in-process TCP legs, paced at 0.12 / 0.1 s an iteration: 48 / 35 s,
+# twice what a respawned or late worker process took to come back on the
+# card while the command-line legs started beside it (PERF.md, section 6)
+KILL_ITERATIONS = 400
+ELASTIC_ITERATIONS = 350
+# fault deadlines of seconds on the card (the defaults, but a quicker
+# heartbeat and poll)
+ASYNC_FAULT = dict(heartbeat_every=0.05, resend_every=0.2,
+                   refresh_resend_every=0.2, death_timeout=10.0,
+                   poll_interval=0.005, all_dead_timeout=60.0)
+
+
+def timed_call(fn):
+    """(result, seconds, kernel launches) of fn(), counts set to 0 just
+    before it."""
+    import torch
+    from repro_torch.kernels import cut_eval as K
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(K.LAUNCHES)
+
+
+def check_against_scan(label, got, want):
+    """Phase 4's gate between an async run and a scan run of the same
+    schedule: histories within rtol 1e-4, cut counts, sim_time and
+    max_staleness exact, final II-layer cut rows, gamma_k and level-2
+    inner state within STATE_RTOL of each tensor's largest entry."""
+    keys = [k for k in ("gap_sq", "mse_clean", "mse_noisy")
+            if k in want.history]
+    compare_routes(label, got.history, want.history, keys, 1e-4)
+    for k in ("t", "sim_time", "max_staleness"):
+        check(np.array_equal(np.asarray(got.history[k], np.float64),
+                             np.asarray(want.history[k], np.float64)),
+              f"{label} {k} differs")
+    diffs = final_state_diffs(got.state, want.state)
+    print(f"  {label} final state (max |diff| / max |entry|): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()),
+          flush=True)
+    for k, v in diffs.items():
+        check(v <= STATE_RTOL, f"{label} final {k}: {v:.2e} of the "
+              f"largest entry > {STATE_RTOL}")
+
+
+def check_async_bitwise(label, got, want):
+    """`got` equals `want` bit for bit: every state leaf and every
+    history row but host_time, and the arrivals."""
+    diffs = bitwise_diffs(got, want)
+    check(not diffs, f"{label}: differs in {diffs[:6]}")
+    check(np.array_equal(got.arrivals.active, want.arrivals.active),
+          f"{label}: arrivals differ")
+    print(f"  {label}: bitwise equal (final state, "
+          f"{len(got.history['gap_sq'])} history rows, arrivals)",
+          flush=True)
+
+
+def async_replay_part(ww_specs, ww_ms, launches):
+    """(a) phase 4's schedule replayed through the runtime on the
+    cut-kernel and the fused route; returns the kernel route's result."""
+    from repro_torch.core import RunSpec, StragglerScheduler, run
+
+    out = {}
+    for name in ("kernel", "fused"):
+        spec = ww_specs[name]
+        schedule = StragglerScheduler(spec.scheduler).precompute(
+            N_ITERATIONS)
+        aspec = dataclasses.replace(spec, engine="async", scheduler=None,
+                                    schedule=schedule)
+        # worker threads, their cuBLAS handles and the route's first use
+        timed_call(lambda: run(dataclasses.replace(
+            aspec, schedule=schedule.slice(0, 5))))
+        res, secs, got = timed_call(lambda: run(aspec))
+        ms = secs / N_ITERATIONS * 1e3
+        print(f"  (a) white wine replayed through the runtime, {name} "
+              f"route, 6 worker threads: {ms:.3f} ms per master iteration "
+              f"(phase 4's scan: {ww_ms[name]:.3f})", flush=True)
+        check_against_scan(f"(a) async {name} vs phase 4 scan", res,
+                           PHASE4[name])
+        check(np.array_equal(res.arrivals.active, schedule.active),
+              f"(a) {name}: the replay did not keep the schedule")
+        launches[f"(a) replay, {name}"] = got
+        out[name] = (res, schedule, aspec, ms)
+    for k in ("matvec", "vecmat"):
+        check(launches["(a) replay, kernel"].get(k, 0) > 0,
+              f"(a) {k} never launched on the async kernel route")
+    check(launches["(a) replay, fused"].get("fused_round", 0) > 0,
+          "(a) fused_round never launched on the async fused route")
+    return out
+
+
+def async_live_part(replayed, launches):
+    """(b) a free white-wine run on the kernel route; its recorded
+    schedule through the runtime (bit for bit) and run_scanned (phase
+    4's gate)."""
+    from repro_torch.core import run, run_scanned
+
+    _, _, aspec, _ = replayed["kernel"]
+    live_spec = dataclasses.replace(aspec, schedule=None,
+                                    n_iterations=N_ITERATIONS)
+    live, secs, got = timed_call(lambda: run(live_spec))
+    rec = live.arrivals
+    stale = int(rec.max_staleness.max())
+    counts = rec.active.sum(1)
+    print(f"  (b) live white-wine run: {secs / N_ITERATIONS * 1e3:.3f} ms "
+          f"per master iteration, max recorded staleness {stale} (tau "
+          f"{aspec.hyper.tau}), workers per iteration min "
+          f"{int(counts.min())} mean {counts.mean():.2f} max "
+          f"{int(counts.max())}", flush=True)
+    check(stale <= aspec.hyper.tau, "(b) recorded staleness beyond tau")
+    launches["(b) live"] = got
+    echo, _, got = timed_call(lambda: run(dataclasses.replace(
+        live_spec, schedule=rec)))
+    launches["(b) echo"] = got
+    check_async_bitwise("(b) live run vs its replay through the runtime",
+                        echo, live)
+    scan = run_scanned(aspec.problem, aspec.hyper, rec,
+                       metrics_fn=aspec.metrics_fn,
+                       metrics_every=aspec.metrics_every)
+    check_against_scan("(b) live run vs run_scanned of its schedule",
+                       live, scan)
+
+
+def async_resume_part(replayed, launches, tmp):
+    """(c) (a)'s kernel route checkpointed every 40 iterations, stopped
+    after 80 and resumed by a fresh master: bit for bit the
+    uninterrupted run."""
+    from repro_torch.fed.runtime import run_async
+
+    full, schedule, aspec, _ = replayed["kernel"]
+    kw = dict(metrics_fn=aspec.metrics_fn, metrics_every=aspec.metrics_every,
+              ckpt_dir=str(Path(tmp) / "async"), device="cuda")
+    _, s1, got1 = timed_call(lambda: run_async(
+        aspec.problem, aspec.hyper,
+        replay=schedule.slice(0, ASYNC_KILL_AT),
+        ckpt_every=ASYNC_CKPT_EVERY, **kw))
+    saved = sorted(p.name for p in Path(kw["ckpt_dir"]).iterdir())
+    check(saved[-1] == f"step_{ASYNC_KILL_AT:08d}",
+          f"(c) checkpoints {saved}")
+    resumed, s2, got2 = timed_call(lambda: run_async(
+        aspec.problem, aspec.hyper, replay=schedule, resume=True, **kw))
+    check_async_bitwise(f"(c) stopped after {ASYNC_KILL_AT} and resumed "
+                        "vs uninterrupted", resumed, full)
+    print(f"  (c) checkpoints {saved}; first master {s1:.2f} s, resumed "
+          f"master {s2:.2f} s", flush=True)
+    launches["(c) kill and resume"] = {k: got1.get(k, 0) + got2.get(k, 0)
+                                      for k in set(got1) | set(got2)}
+
+
+def async_chaos_part(replayed, launches):
+    """(d) white wine under a seeded chaos script (lossy frames, worker 1
+    crashing at its 5th push and rejoining): completes, and its degraded
+    schedule replays through the runtime bit for bit."""
+    from repro_torch.fed.runtime import (ChaosScript, FaultConfig,
+                                         run_async, run_chaos_async)
+
+    _, _, aspec, _ = replayed["kernel"]
+    script = ChaosScript(seed=5, drop_p=0.05, dup_p=0.05, delay_p=0.05,
+                         delay_s=0.002, cut_p=0.03,
+                         crash_at_push=((1, 5),))
+    fault = FaultConfig(**ASYNC_FAULT)
+    seen = {}
+    res, secs, got = timed_call(lambda: run_chaos_async(
+        aspec.problem, aspec.hyper, script, n_iterations=CHAOS_ITERATIONS,
+        fault=fault, restart_delay=0.3, metrics_every=10,
+        master_hook=lambda m: seen.update(m=m), device="cuda"))
+    status = seen["m"].status
+    rec = res.arrivals
+    print(f"  (d) chaos white wine, {CHAOS_ITERATIONS} iterations: "
+          f"{secs:.2f} s, deaths {status['deaths']}, rejoins "
+          f"{status['rejoins']}, corrupt frames {status['corrupt_frames']},"
+          f" iterations with worker 1 dead {int(rec.dead[:, 1].sum())}, "
+          f"max staleness {int(rec.max_staleness.max())}", flush=True)
+    check(status["deaths"] >= 1 and status["rejoins"] >= 1,
+          "(d) the scripted crash did not die and rejoin")
+    check(int(rec.max_staleness.max()) <= aspec.hyper.tau,
+          "(d) recorded staleness beyond tau")
+    launches["(d) chaos"] = got
+    echo, _, got = timed_call(lambda: run_async(
+        aspec.problem, aspec.hyper, replay=rec, metrics_every=10,
+        device="cuda"))
+    check_async_bitwise("(d) chaos run vs its replay through the runtime",
+                        echo, res)
+    launches["(d) chaos echo"] = got
+
+
+def fed_args(**kw):
+    """`serve fed`'s parsed arguments on the card, with `kw` changed."""
+    from repro_torch.launch.serve import fed_parser
+
+    args = fed_parser().parse_args(["--transport", "tcp", "--workers", "4",
+                                    "--iters", str(FED_ITERATIONS),
+                                    "--accept-timeout", "300"])
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def start_serve_fed_cli(extra, log_path):
+    """Start `python -m repro_torch.launch.serve fed --transport tcp
+    --workers 4 --iters 60` plus `extra`, worker subprocesses on the
+    card, its output into `log_path`: (process, start time)."""
+    from repro_torch.launch.serve import worker_env
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "fed",
+           "--transport", "tcp", "--workers", "4", "--iters",
+           str(FED_ITERATIONS), "--accept-timeout", "300", *extra]
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, env=worker_env(), stdout=log,
+                                stderr=subprocess.STDOUT)
+    return proc, time.perf_counter()
+
+
+def finish_serve_fed_cli(label, extra, proc, t0, log_path, times):
+    """Wait for a `serve fed` CLI run (at most 600 s), print its tail and
+    fail unless it exited 0 (and, streamed, passed its replay gate)."""
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    secs = time.perf_counter() - t0
+    out = Path(log_path).read_text()
+    tail = [ln for ln in out.splitlines() if not ln.startswith("{")]
+    print(f"  (e) serve fed --transport tcp --workers 4 --iters "
+          f"{FED_ITERATIONS} {' '.join(extra)}: exit {rc}, {secs:.1f} s; "
+          + " | ".join(tail[-3:]), flush=True)
+    check(rc == 0, f"(e) serve fed {label} exited {rc}:\n{out[-3000:]}")
+    if extra:
+        check("streamed replay gate" in out and "(ok)" in out,
+              "(e) the streamed replay gate did not pass")
+    times[f"serve fed {label}"] = secs
+
+
+def tcp_run(args, watcher, fault_kw):
+    """A TCP `serve fed` run in this process with `watcher(master, procs)`
+    on a thread beside the master: (result, seconds, marks)."""
+    import threading
+
+    from repro_torch.fed.runtime import FaultConfig, TcpTransport, problems
+    from repro_torch.fed.runtime import run_async
+    from repro_torch.launch.serve import spawn_tcp_workers
+
+    problem, hyper = problems.build(args.problem, n_workers=args.workers,
+                                    dim=args.dim, seed=args.seed,
+                                    device="cuda")
+    elastic = (problems.elastic_config(args.problem, args.max_workers,
+                                       dim=args.dim, seed=args.seed,
+                                       device="cuda")
+               if args.max_workers > args.workers else None)
+    transport = TcpTransport(args.workers, port=0,
+                             max_workers=max(args.max_workers, args.workers))
+    transport.master_endpoint()
+    procs = spawn_tcp_workers(args, transport.port)
+    marks = {"killed": []}
+
+    def hook(master):
+        threading.Thread(target=watcher,
+                         args=(master, procs, transport.port, marks),
+                         daemon=True).start()
+
+    t0 = time.perf_counter()
+    try:
+        res = run_async(problem, hyper, n_iterations=args.iters,
+                        metrics_every=args.metrics_every,
+                        transport=transport, master_hook=hook,
+                        fault=FaultConfig(**fault_kw), elastic=elastic,
+                        accept_timeout=300.0, device="cuda")
+    finally:
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs if p not in marks["killed"]),
+          f"worker processes exited {[p.returncode for p in procs]}")
+    return res, time.perf_counter() - t0, marks
+
+
+def wait_for(master, cond, timeout=120.0):
+    t0 = time.monotonic()
+    while not cond() and not master.status["done"]:
+        if time.monotonic() - t0 > timeout:
+            return False
+        time.sleep(0.02)
+    return cond()
+
+
+def fed_kill_leg(times):
+    """Worker 0 SIGKILLed mid-run and respawned with --epoch 1."""
+    from repro_torch.core import run_scanned
+    from repro_torch.fed.runtime import problems
+    from repro_torch.launch.serve import worker_command, worker_env
+
+    # paced long enough for the respawned process (torch, CUDA, one
+    # warm-up gradient) to come back while the command-line legs start
+    # beside it
+    args = fed_args(iters=KILL_ITERATIONS)
+
+    def watcher(master, procs, port, marks):
+        st = master.status
+        wait_for(master, lambda: st["t"] >= 5)
+        marks["killed_at"], deaths = st["t"], st["deaths"]
+        marks["killed"].append(procs[0])
+        procs[0].kill()
+        marks["died"] = wait_for(master, lambda: st["deaths"] > deaths)
+        marks["death_at"], rejoins = st["t"], st["rejoins"]
+        procs.append(subprocess.Popen(
+            worker_command(args, port, 0, epoch=1), env=worker_env()))
+        # the respawned session announces epoch 1
+        marks["rejoined"] = wait_for(
+            master, lambda: st["rejoins"] > rejoins
+            and st["workers"][0]["epoch"] >= 1)
+        marks["rejoin_at"] = st["t"]
+        marks["status"] = st
+
+    res, secs, marks = tcp_run(args, watcher, dict(
+        ASYNC_FAULT, min_iter_time=0.12))
+    rec = res.arrivals
+    check(marks.get("died") and marks.get("rejoined")
+          and float(rec.dead[:, 0].max()) == 1.0,
+          f"(e) the killed worker did not die and rejoin: {marks}")
+    check(int(rec.max_staleness.max()) <= 5, "(e) staleness beyond tau")
+    problem, hyper = problems.build("quadratic", n_workers=4, device="cuda")
+    echo = run_scanned(problem, hyper, rec, metrics_every=10)
+    rel = float(np.max(np.abs(res.history["gap_sq"] - echo.history["gap_sq"])
+                       / np.abs(echo.history["gap_sq"])))
+    check(rel <= 1e-5, f"(e) killed run's schedule replays at {rel:.2e}")
+    times["tcp, worker 0 killed and respawned"] = secs
+    dead = np.nonzero(rec.dead[:, 0] > 0)[0]
+    st = marks["status"]
+    print(f"  (e) tcp, worker 0 SIGKILLed at iteration "
+          f"{marks['killed_at']} and respawned with --epoch 1: death seen "
+          f"at {marks['death_at']}, its epoch-1 session back at "
+          f"{marks['rejoin_at']}; "
+          f"deaths {st['deaths']}, rejoins {st['rejoins']}, recorded dead "
+          f"in {dead.size} iterations ({int(dead[0]) + 1}-"
+          f"{int(dead[-1]) + 1}); replay through run_scanned {rel:.2e}; "
+          f"{secs:.1f} s", flush=True)
+
+
+def fed_elastic_leg(times):
+    """`--max-workers 5` with a late worker 4: the widening schedule
+    replays bit for bit through run_scanned_elastic."""
+    from repro_torch.fed.runtime import problems
+    from repro_torch.fed.runtime.membership import run_scanned_elastic
+    from repro_torch.launch.serve import worker_command, worker_env
+
+    args = fed_args(iters=ELASTIC_ITERATIONS, max_workers=5)
+
+    def watcher(master, procs, port, marks):
+        wait_for(master, lambda: master.status["t"] >= 5)
+        marks["started_at"] = master.status["t"]
+        procs.append(subprocess.Popen(
+            worker_command(args, port, 4), env=worker_env()))
+        marks["admitted"] = wait_for(master,
+                                     lambda: master.hyper.n_workers >= 5)
+        marks["admitted_at"] = master.status["t"]
+
+    res, secs, marks = tcp_run(args, watcher, dict(
+        ASYNC_FAULT, min_iter_time=0.1))
+    rec = res.arrivals
+    check(rec.width is not None and int(rec.width[0]) == 4
+          and int(rec.width[-1]) == 5,
+          f"(e) the late worker did not widen the run mid-way: {marks}")
+    check(float(rec.active[:, 4].sum()) > 0,
+          "(e) the admitted worker never arrived")
+    echo = run_scanned_elastic(
+        lambda n: problems.build("quadratic", n_workers=n, device="cuda"),
+        rec, metrics_every=args.metrics_every)
+    diffs = bitwise_diffs(echo, dataclasses.replace(
+        res, history={k: v for k, v in res.history.items()
+                      if k in echo.history}))
+    check(not diffs, f"(e) widened run vs run_scanned_elastic: {diffs[:6]}")
+    times["tcp, --max-workers 5, late worker"] = secs
+    print(f"  (e) tcp --max-workers 5: worker 4 started at iteration "
+          f"{marks.get('started_at')}, admitted at "
+          f"{marks.get('admitted_at')} (width column {int(rec.width[0])} -> "
+          f"{int(rec.width[-1])}), bitwise equal to run_scanned_elastic; "
+          f"{secs:.1f} s", flush=True)
+
+
+def serve_fed_part(times, tmp):
+    """(e) `serve fed` over TCP with worker subprocesses on the card: the
+    two command-line runs go on beside the two in-process legs."""
+    legs = {"tcp": [], "tcp --stream": ["--stream"]}
+    started = {label: start_serve_fed_cli(extra, Path(tmp) / f"{i}.log")
+               for i, (label, extra) in enumerate(legs.items())}
+    try:
+        fed_kill_leg(times)
+        fed_elastic_leg(times)
+        for i, (label, extra) in enumerate(legs.items()):
+            finish_serve_fed_cli(label, extra, *started[label],
+                                 Path(tmp) / f"{i}.log", times)
+    finally:
+        # a failed leg leaves no serve process behind (each dismisses
+        # its own workers when it ends)
+        for proc, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def push_frame_bytes(aspec):
+    """Bytes of one white-wine push frame and one refresh frame."""
+    from repro_torch.core import afto
+    from repro_torch.fed.runtime import messages as msg_lib
+    from repro_torch.utils.tree import tree_index
+
+    st = afto.init_state(aspec.problem, aspec.hyper)
+    rows = tuple(tree_index(x, 0) for x in (st.X1, st.X2, st.X3))
+    return (len(msg_lib.encode(msg_lib.push(0, 1, rows))),
+            len(msg_lib.encode(msg_lib.refresh(0, 1, rows))))
+
+
+def async_phase(rows, ww_specs, ww_ms):
+    """Phase 13: returns the async spec to profile."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    launches, times = {}, {}
+    replayed = async_replay_part(ww_specs, ww_ms, launches)
+    async_live_part(replayed, launches)
+    with tempfile.TemporaryDirectory(prefix="phase13_ckpt_") as tmp:
+        async_resume_part(replayed, launches, tmp)
+    async_chaos_part(replayed, launches)
+    with tempfile.TemporaryDirectory(prefix="phase13_fed_") as tmp:
+        serve_fed_part(times, tmp)
+    for label, got in launches.items():
+        print(f"  launches, {label}: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(got.items())), flush=True)
+    totals = {}
+    for got in launches.values():
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+    for k in KERNELS:
+        rows[k]["launches_phase13"] = int(totals.get(k, 0))
+    for k in ("matvec", "vecmat", "fused_round"):
+        check(totals.get(k, 0) > 0, f"phase 13: {k} never launched")
+    aspec = replayed["kernel"][2]
+    push_b, refresh_b = push_frame_bytes(aspec)
+    print(f"  white-wine frames: push {push_b} bytes, refresh {refresh_b} "
+          "bytes", flush=True)
+    print("  ms per master iteration: " + ", ".join(
+        f"async {k} {v[3]:.3f}" for k, v in replayed.items())
+        + "; TCP legs, s: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in times.items()))
+    print(f"phase 13 (the async federation runtime): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dataclasses.replace(aspec, schedule=aspec.schedule.slice(0, 20))
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch is not beside chip_smoke.py: run it from a "
@@ -2625,6 +3114,7 @@ def main() -> None:
     profiled = paper_phase()
     sweep_spec = sweep_phase(rows, ww_specs)
     stream_spec = stream_phase(rows, ww_specs)
+    async_spec = async_phase(rows, ww_specs, ww_ms)
     # under the profiler after every timed run: it slows later host
     # launches
     for label, run in profiled.items():
@@ -2633,6 +3123,8 @@ def main() -> None:
                   "cut kernels (two refreshes)", sweep_spec)
     profile_phase(f"streamed quadratic, dim {STREAM_DIM:,}, cut kernels "
                   "(four refreshes)", stream_spec)
+    profile_phase("white-wine async runtime, 6 worker threads, cut kernels "
+                  "(two refreshes)", async_spec)
     print("ms/iteration, mean of two runs per route: white-wine "
           + ", ".join(f"{k} {v:.3f}" for k, v in ww_ms.items())
           + "; domain adaptation "

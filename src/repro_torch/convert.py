@@ -8,7 +8,10 @@ state is read by its field names, which the port's dataclasses share.
 
 Streams: the port cannot draw the reference's `jax.random` batches, so
 `stream_from_reference` hands them over as a table, each worker row
-keyed by (iteration, worker), behind a port `Stream`.
+keyed by (iteration, worker), behind a port `Stream`.  Likewise the
+federation registry's problems (`fed/runtime/problems.py`) draw their
+data from torch generators; `registry_problem` rebuilds one on the
+reference registry's data, so both packages federate identical rows.
 
 bf16: `np.array` of a JAX bf16 array has the `ml_dtypes` bfloat16 dtype,
 which torch refuses; such a leaf crosses as its 16-bit patterns viewed
@@ -126,3 +129,16 @@ def stream_from_reference(batches, device="cpu"):
         return table[key]
 
     return stream_lib.make_stream(sample, n_workers, 0)
+
+
+def registry_problem(name: str, data, n_workers: int, dim: int = 3,
+                     seed: int = 0, device="cpu"):
+    """(problem, hyper) of the port's federation registry problem `name`
+    at these knobs, its data replaced by `data`: the reference
+    registry's `problem.data` of the same knobs (numpy-convertible
+    leaves, e.g. `jax.tree.map(np.asarray, problem.data)`)."""
+    from repro_torch.fed.runtime import problems
+
+    problem, hyper = problems.build(name, n_workers=n_workers, dim=dim,
+                                    seed=seed, device=device)
+    return dataclasses.replace(problem, data=to_torch(data, device)), hyper

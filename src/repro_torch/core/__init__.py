@@ -8,7 +8,8 @@ from repro_torch.core.afto import (afto_step, afto_step_aux,
 from repro_torch.core.engine import (RunResult, SweepResult, record_slots,
                                      run_chunked, run_scanned, run_swept)
 from repro_torch.core.runner import RunSpec, run
-from repro_torch.core.scheduler import (Schedule, StragglerConfig,
+from repro_torch.core.scheduler import (ArrivalPolicy, ArrivalRecorder,
+                                        Schedule, StragglerConfig,
                                         StragglerScheduler)
 from repro_torch.core.stationarity import stationarity_gap_sq
 from repro_torch.core.weakly_convex import (curvature_along, estimate_mu,

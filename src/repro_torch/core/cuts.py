@@ -214,3 +214,110 @@ def cut_coeff_per_worker(fc: FlatCuts, weights, block: str):
         out = torch.einsum("np,pnr->nr", w, col)
         leaves.append(out.reshape(spec.shapes[i]).to(spec.dtypes[i]))
     return tree_unflatten(spec.tdefs[b_idx], leaves)
+
+
+# ---------------------------------------------------------------------------
+# column partitions over the worker axis: shard views and growth
+# ---------------------------------------------------------------------------
+
+def n_a_leaves(spec: FlatSpec) -> int:
+    """Number of leaves in the master (a1, a2, a3) blocks."""
+    return sum(spec.nleaves[:3])
+
+
+def _respec(spec: FlatSpec, worker_dim) -> FlatSpec:
+    """`spec` with each b-leaf's leading worker dimension replaced by
+    `worker_dim(n)`; a-leaves unchanged."""
+    na = n_a_leaves(spec)
+    shapes = tuple(shp if i < na else (worker_dim(int(shp[0])),) + shp[1:]
+                   for i, shp in enumerate(spec.shapes))
+    sizes = tuple(int(np.prod(s)) if s else 1 for s in shapes)
+    offsets = tuple(int(o) for o in np.cumsum((0,) + sizes[:-1])) \
+        if sizes else ()
+    return FlatSpec(tdefs=spec.tdefs, nleaves=spec.nleaves, shapes=shapes,
+                    dtypes=spec.dtypes, sizes=sizes, offsets=offsets,
+                    d_total=sum(sizes))
+
+
+def shard_spec(spec: FlatSpec, n_shards: int) -> FlatSpec:
+    """The per-shard column layout: b-leaves carry N / n_shards workers."""
+    def per_shard(n):
+        if n % n_shards != 0:
+            raise ValueError(
+                f"worker axis {n} not divisible by {n_shards} shards")
+        return n // n_shards
+    return _respec(spec, per_shard)
+
+
+def _cols(a, spec: FlatSpec, i: int):
+    return a[..., spec.offsets[i]:spec.offsets[i] + spec.sizes[i]]
+
+
+def shard_cuts(fc: FlatCuts, n_shards: int) -> FlatCuts:
+    """The matrix partitioned by worker columns: `a` becomes
+    (n_shards, P, D_loc), shard w holding the a-columns (replicated) and
+    worker group w's b-columns, in the `shard_spec` layout; c / active /
+    age stay replicated.  `unshard_cuts` inverts it bit for bit."""
+    spec = fc.spec
+    lspec = shard_spec(spec, n_shards)
+    p = fc.a.shape[0]
+    na = n_a_leaves(spec)
+    parts = []
+    for i in range(len(spec.sizes)):
+        col = _cols(fc.a, spec, i)
+        if i < na:
+            parts.append(col[None].expand(n_shards, p, spec.sizes[i]))
+        else:
+            parts.append(col.reshape(p, n_shards, lspec.sizes[i])
+                         .permute(1, 0, 2))
+    return FlatCuts(a=torch.cat(parts, dim=-1), c=fc.c, active=fc.active,
+                    age=fc.age, spec=lspec)
+
+
+def unshard_cuts(fc: FlatCuts, spec: FlatSpec) -> FlatCuts:
+    """Inverse of `shard_cuts`: the canonical (P, D) matrix from the
+    (n_shards, P, D_loc) column groups (`spec` is the global layout)."""
+    lspec = fc.spec
+    p = fc.a.shape[1]
+    na = n_a_leaves(spec)
+    cols = []
+    for i in range(len(spec.sizes)):
+        col = _cols(fc.a, lspec, i)
+        cols.append(col[0] if i < na else
+                    col.permute(1, 0, 2).reshape(p, spec.sizes[i]))
+    return FlatCuts(a=torch.cat(cols, dim=-1), c=fc.c, active=fc.active,
+                    age=fc.age, spec=spec)
+
+
+def grow_spec(spec: FlatSpec, n_new: int) -> FlatSpec:
+    """The column layout after growing the worker axis to `n_new`
+    (growth only: shrinking would discard live b-columns)."""
+    def grown(n):
+        if n > int(n_new):
+            raise ValueError(f"grow_spec: worker axis {n} > target "
+                             f"{n_new} (membership only grows)")
+        return int(n_new)
+    return _respec(spec, grown)
+
+
+def grow_cuts(fc: FlatCuts, n_new: int) -> FlatCuts:
+    """The polytope over `n_new` workers: a-columns, c, active and age
+    copied, existing workers' b-columns kept, the newcomers' b-columns
+    zero.  Exact: a zero coefficient adds nothing to any contraction."""
+    spec = fc.spec
+    gspec = grow_spec(spec, n_new)
+    p = fc.a.shape[0]
+    na = n_a_leaves(spec)
+    parts = []
+    for i in range(len(spec.sizes)):
+        col = _cols(fc.a, spec, i)
+        if i < na:
+            parts.append(col)
+            continue
+        n_old = spec.shapes[i][0]
+        per = spec.sizes[i] // max(1, n_old)
+        wide = fc.a.new_zeros((p, int(n_new), per))
+        wide[:, :n_old] = col.reshape(p, n_old, per)
+        parts.append(wide.reshape(p, gspec.sizes[i]))
+    return FlatCuts(a=torch.cat(parts, dim=-1), c=fc.c, active=fc.active,
+                    age=fc.age, spec=gspec)

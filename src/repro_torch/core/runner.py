@@ -1,7 +1,7 @@
 """Run dispatcher behind the `RunSpec` API.
 
 Counterpart of `repro/core/runner.py`.  `run(RunSpec(...))` is the
-canonical entry; this port carries three engines:
+canonical entry; this port carries four engines:
 
   "scan"   (default) materialize the straggler schedule up front and
            drive the trajectory through `engine.run_scanned`, which keeps
@@ -16,12 +16,16 @@ canonical entry; this port carries three engines:
   "eager"  the per-iteration host loop: host-side `metrics_fn`
            callbacks, per-iteration host timestamps, and the live
            scheduler when no schedule is given.
+  "async"  the real master / worker runtime (`repro_torch.fed.runtime.
+           run_async`) over a pluggable transport: workers compute the
+           Eq. 16 gradients at their own pace and push them; with
+           `schedule` the master replays that arrival order, without it
+           the run's live arrivals come back as `RunResult.arrivals`.
 
 Every engine takes `data=`: replacement `problem.data` arrays, or a
 `repro_torch.data.stream.Stream` whose worker batches are drawn each
-iteration at the workers' consumption times.  The async engine and
-worker meshes are later slices of the port and raise
-`NotImplementedError`.
+iteration at the workers' consumption times.  Worker meshes are a later
+slice of the port and raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -42,9 +46,8 @@ from repro_torch.data import stream as stream_lib
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves
 
-ENGINES = ("scan", "sweep", "eager")
+ENGINES = ("scan", "sweep", "eager", "async")
 # what is not ported yet, and its item in ROADMAP.md Queue 1
-_LATER = {"async": "the async runtime (item 5)"}
 _LATER_FIELDS = {"mesh": "the worker-mesh sharded engine (item 6)"}
 _SWEEP_ONLY = ("schedules", "seeds", "sweep_states", "sweep_hypers")
 
@@ -54,12 +57,13 @@ class RunSpec:
     """One run, fully specified.
 
       problem / hyper   the trilevel problem and algorithm hypers.
-      engine            "scan" | "sweep" | "eager".
+      engine            "scan" | "sweep" | "eager" | "async".
       n_iterations      master iterations T (ignored when `schedule`
                         fixes the length).
       scheduler         `StragglerConfig` for the simulated arrival
                         process (defaults to hyper's N/S/tau).
-      schedule          a materialized `Schedule` to run.
+      schedule          a materialized `Schedule` to run (engine="async":
+                        the arrival order the master replays).
       metrics_fn        extra per-record metrics: `state -> {name: 0-d
                         tensor}`.
       metrics_every     record stride.
@@ -82,6 +86,9 @@ class RunSpec:
                         needs `chunk_size`.
       device            where the run happens; None means CUDA (and
                         raises without it).  The problem must live there.
+      transport         engine="async": a `repro_torch.fed.runtime`
+                        transport (default: an in-process queue
+                        transport with one worker thread per worker).
       mesh              a later slice of the port; must stay None.
     """
     problem: TrilevelProblem
@@ -99,6 +106,7 @@ class RunSpec:
     sweep_hypers: Optional[Mapping] = None
     device: Optional[str] = None
     data: Any = None
+    transport: Any = None
     mesh: Any = None
     chunk_size: Optional[int] = None
     chunk_hook: Optional[Callable] = None
@@ -119,10 +127,6 @@ class RunSpec:
 def run(spec: RunSpec):
     """Run AFTO as `spec` says: a `RunResult`, or for engine="sweep" a
     `SweepResult`."""
-    if spec.engine in _LATER:
-        raise NotImplementedError(
-            f"engine={spec.engine!r}: {_LATER[spec.engine]} is not ported "
-            "yet (ROADMAP.md Queue 1)")
     if spec.engine not in ENGINES:
         raise ValueError(f"unknown engine {spec.engine!r}; expected one "
                          f"of {ENGINES}")
@@ -135,6 +139,8 @@ def run(spec: RunSpec):
         raise ValueError("chunk_hook requires chunk_size")
     if spec.chunk_size is not None and spec.engine != "scan":
         raise ValueError("chunk_size/chunk_hook require engine='scan'")
+    if spec.transport is not None and spec.engine != "async":
+        raise ValueError("RunSpec.transport is for engine='async'")
     if spec.engine != "sweep":
         for name in _SWEEP_ONLY:
             if getattr(spec, name) is not None:
@@ -145,6 +151,13 @@ def run(spec: RunSpec):
             raise ValueError(f"the problem lives on {leaf.device}, the run "
                              f"on {device}")
 
+    if spec.engine == "async":
+        from repro_torch.fed import runtime as runtime_lib
+        return runtime_lib.run_async(
+            spec.problem, spec.hyper, n_iterations=spec.n_iterations,
+            metrics_fn=spec.metrics_fn, metrics_every=spec.metrics_every,
+            state=spec.state, replay=spec.schedule,
+            transport=spec.transport, data=spec.data, device=device)
     if spec.engine == "sweep":
         return _run_sweep(spec)
     if spec.engine == "scan":

@@ -149,7 +149,7 @@ def test_entry_points_need_cuda_unless_told_cpu():
 
 
 @pytest.mark.parametrize("change,exc", [
-    (dict(engine="async"), NotImplementedError),
+    (dict(transport=object()), ValueError),
     (dict(engine="warp"), ValueError),
     (dict(mesh=object()), NotImplementedError),
     (dict(chunk_hook=lambda state, t: None), ValueError),
@@ -198,6 +198,7 @@ def test_port_runs_with_jax_unimportable():
         "import repro_torch.apps.robust_hpo, repro_torch.convert\n"
         "import repro_torch.apps.baselines, repro_torch.experiments.run\n"
         "import repro_torch.checkpoint, repro_torch.data\n"
+        "import repro_torch.fed.runtime, repro_torch.launch.serve\n"
         "g = torch.Generator().manual_seed(0)\n"
         "data = {'A': torch.randn(4, 3, 3, generator=g) * 0.3,\n"
         "        'b': torch.randn(4, 3, generator=g)}\n"

@@ -376,3 +376,53 @@ def test_serve_runs_with_jax_unimportable():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "first generations" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# serve fed: the async federation runtime
+# ---------------------------------------------------------------------------
+
+def _fed_records(out):
+    import json
+    return [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+
+
+def test_serve_fed_inproc_on_cpu_with_status_and_resume(capsys, tmp_path):
+    ckpt = str(tmp_path / "fed")
+    base = ["fed", "--device", "cpu", "--workers", "3", "--iters", "20",
+            "--metrics-every", "5", "--ckpt-dir", ckpt, "--ckpt-every",
+            "10", "--death-timeout", "20"]
+    assert serve_lib.main(base + ["--status-port", "0",
+                                  "--adapt-arrivals"]) == 0
+    out = capsys.readouterr().out
+    assert "status endpoint: http://127.0.0.1:" in out
+    assert "(decreasing)" in out and "tau bound ok" in out
+    recs = _fed_records(out)
+    assert [r["t"] for r in recs] == [5, 10, 15, 20]
+    # resumed from the step-20 checkpoint for 10 more iterations
+    assert serve_lib.main(base + ["--iters", "30", "--resume"]) == 0
+    recs = _fed_records(capsys.readouterr().out)
+    assert [r["t"] for r in recs] == [5, 10, 15, 20, 25, 30]
+
+
+def test_serve_fed_tcp_streamed_on_cpu(capsys):
+    """`serve fed --transport tcp --stream` on the CPU: worker
+    subprocesses rebuild the problem and the stream by name, and the run
+    exits 0 only through the streamed replay gate."""
+    rc = serve_lib.main(["fed", "--transport", "tcp", "--stream",
+                         "--device", "cpu", "--workers", "2", "--iters",
+                         "10", "--metrics-every", "5", "--accept-timeout",
+                         "90", "--death-timeout", "20"])
+    out = capsys.readouterr().out
+    assert rc == 0, out[-2000:]
+    assert "master listening on 127.0.0.1:" in out
+    assert "streamed replay gate: max gap rel err" in out and "(ok)" in out
+    assert len(_fed_records(out)) == 2
+
+
+def test_serve_fed_without_a_card_needs_an_explicit_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_lib.main(["fed", "--iters", "2"])
