@@ -79,17 +79,18 @@ file; exits non-zero, printing no result, without them.  Phases:
    scripts' settings on the kernel route, each method and seed a `scan`
    run after the other (`engine="scan"`): Fig. 1 on all four datasets (Table 1: diabetes,
    boston and red wine N=4, S=3; white wine N=6, S=4; one 5x straggler,
-   tau=10; 120 iterations, AFTO then SFTO), with diabetes again on the
+   tau=10; 60 iterations, half the reference's, AFTO then SFTO), with
+   diabetes again on the
    plain cut route; Fig. 2 in both directions (SVHN pretrain N=6, S=3,
    two stragglers, tau=15; MNIST pretrain N=4, S=3, one straggler,
    tau=5; 40 iterations; cuDNN held to f32 and deterministic); Table 2 on
-   white wine, seed 0, at the reference's `--fast` counts (AFTO and ADBO
-   300 iterations, FedNest 60); the Thm 4.5 rate check (400 iterations x
-   2 seeds) and the Thm 4.6 communication count (60 iterations).  Per
-   run: ms per master iteration and the cut kernels' launches (20
-   iterations of diabetes, MNIST pretrain and the rate problem, AFTO,
-   under `torch.profiler` as in phase 6); every
-   history must be finite, every AFTO-loop run (ADBO's too) must launch
+   white wine, seed 0, at two thirds of the reference's `--fast` counts
+   (AFTO and ADBO 200 iterations, FedNest 40); the Thm 4.5 rate check
+   (400 iterations x 2 seeds) and the Thm 4.6 communication count (60
+   iterations).  Per run: ms per master iteration and the cut kernels'
+   launches (20 iterations of diabetes, MNIST pretrain and the rate
+   problem, AFTO, under `torch.profiler` as in phase 6); every history
+   must be finite, every AFTO-loop run (ADBO's too) must launch
    `matvec` and `vecmat`, and diabetes's kernel-route histories must
    equal the plain route's within rtol 1e-4 with the cut counts exact.
 11. The sweep engine (`engine="sweep"`, R runs through one vmapped loop;
@@ -113,11 +114,11 @@ file; exits non-zero, printing no result, without them.  Phases:
    wine (AFTO and SFTO as R = 2, against phase 10), phase 4's fused route
    at seeds 0 and 1 (row 0 against phase 4's run), Fig. 2 MNIST pretrain
    (against phase 10), Table 2 white wine at N = 4 (AFTO seeds 0 and 1 on
-   stacked per-seed data, 100 iterations, against serial runs) and the
+   stacked per-seed data, 60 iterations, against serial runs) and the
    rate check (`seeds=`, against phase 10); ms per iteration of each
    sweep and of its serial runs, and each sweep's launches (single-run
    kernels must not launch in a sweep).  `engine_speed.sweep_record`
-   (R = 4 white-wine runs, 30 iterations) is printed, not gated, and 20
+   (R = 4 white-wine runs, 15 iterations) is printed, not gated, and 20
    swept white-wine iterations are profiled with the other profiles.
 12. Streams, chunked runs and checkpoints, through `run(RunSpec(...))`
    only.  (a) The registry's streamed quadratic problem
@@ -152,9 +153,9 @@ file; exits non-zero, printing no result, without them.  Phases:
    counts, sim_time and max_staleness exact; final II-layer cut rows,
    gamma_k and level-2 inner state within 1e-4 of each tensor's largest
    entry), ms per master iteration beside phase 4's.  (b) A live run on
-   the kernel route: recorded staleness within tau, its schedule
-   replayed through the runtime bit for bit and through `run_scanned`
-   within (a)'s gate.  (c) (a)'s kernel route checkpointed every 40
+   the kernel route (60 iterations): recorded staleness within tau, its
+   schedule replayed through the runtime bit for bit and through
+   `run_scanned` within (a)'s gate.  (c) (a)'s kernel route checkpointed every 40
    iterations, stopped after 80 and resumed by a fresh master: bit for
    bit the uninterrupted run.  (d) `run_chaos_async` on white wine
    (lossy frames, worker 1 crashing at its 5th push and rejoining):
@@ -164,14 +165,39 @@ file; exits non-zero, printing no result, without them.  Phases:
    included), both exit 0; beside them, in this process, a TCP run whose
    worker 0 is SIGKILLed and respawned with `--epoch 1`, and one with
    `--max-workers 5` whose late worker 4 widens the run, which replays
-   bit for bit through `run_scanned_elastic`.  (f) The launches of
-   `matvec`, `vecmat` and `fused_round` on (a)-(d) (each must launch;
-   the kernel line's `launches_phase13`), the bytes of a white-wine push
-   frame, and 20 async white-wine iterations profiled with the other
-   profiles.
+   bit for bit through `run_scanned_elastic` (these two side by side,
+   each paced until its worker is back, then unpaced).  (f) The
+   launches of `matvec`, `vecmat` and `fused_round` on (a)-(d) (each
+   must launch; the kernel line's `launches_phase13`), the bytes of a
+   white-wine push frame, and 20 async white-wine iterations profiled
+   with the other profiles.
+14. The worker-mesh sharded engine (`run(RunSpec(mesh=))`, one process
+   per shard), after phase 13: one job of 4 gloo ranks sharing the card
+   (`launch.mesh.spawn_mesh`), whose first 2, 3 and 4 ranks and, over
+   NCCL, its first rank form the meshes (`make_worker_mesh`).  (a) Phase
+   4's white wine (its schedule, 120 iterations, full width) on 2 and on
+   3 ranks and (b) on the 1-rank NCCL mesh, each held to phase 4's
+   unsharded plain-route run: every final state leaf within rtol 5e-5 /
+   atol 1e-6, gap_sq within rtol 5e-4, cut counts, t, sim_time and
+   max_staleness exact.  (c) Phase 12 (a')'s streamed quadratic at dim
+   4,096 (60 iterations) on 2 and on 4 ranks, held to phase 12 (a')'s
+   plain route the same way, a level-2 cut binding.  (d) White wine as
+   a sweep of 2 (schedule seeds 0 and 1) on 2 ranks, each row held to
+   phase 11's serial run of its seed.  (e) (a) on 2 ranks in chunks [0,
+   37, 80, 120] with a checkpoint at each boundary, and resumed from the
+   step-80 checkpoint: bit for bit (a).  (f) On every leg the bytes each
+   rank all-reduced equal `core.sharded.traffic_record`'s, every rank's
+   result is bitwise the same (replicated leaves included), ms per
+   master iteration beside phase 4's unsharded plain scan, and the
+   launches of every port kernel (none: the sharded path contracts the
+   cuts with plain products; the kernel line's `launches_phase14`); 30
+   white-wine iterations on 2 ranks with every all-reduce timed, the
+   device synchronised first.
 
-The line before the nvidia-smi line is a JSON object listing every
-ported kernel; the last line is the JSON result.
+Each phase ends with a `[clock]` line (its seconds and the script's),
+also on standard error; past WATCHDOG_S seconds every thread's stack
+goes to standard error.  The line before the nvidia-smi line is a JSON
+object listing every ported kernel; the last line is the JSON result.
 """
 from __future__ import annotations
 
@@ -804,17 +830,25 @@ def print_multipliers(label, st):
           f"{float(st.inner2.gamma.max()):.3e}")
 
 
-def slice_phase(rows):
+def white_wine():
+    """Phase 4's white-wine robust HPO on the card (Table 1: N=6, S=4,
+    tau=10, one 5x straggler): (task, hyper, scheduler config)."""
     from repro_torch.apps.robust_hpo import (default_hyper,
                                              make_robust_hpo_problem)
-    from repro_torch.core import RunSpec, StragglerConfig
+    from repro_torch.core import StragglerConfig
 
     n, s, tau = 6, 4, 10
     task = make_robust_hpo_problem("white_wine", n_workers=n, seed=0,
                                    device="cuda")
-    hyper = default_hyper(task, n, s, tau)
     cfg = StragglerConfig(n_workers=n, s_active=s, tau=tau, n_stragglers=1,
                           straggler_slowdown=5.0, seed=0)
+    return task, default_hyper(task, n, s, tau), cfg
+
+
+def slice_phase(rows):
+    from repro_torch.core import RunSpec
+
+    task, hyper, cfg = white_wine()
 
     def metrics(state):
         w = {k: v.mean(0) for k, v in state.X3.items()}
@@ -1008,11 +1042,13 @@ def profile_call(label, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the profiler's raw records: `prof.events()` would build a Python
+    # tree of every host op first, 20-30 s for 20 AFTO iterations
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            n, us = by_name.get(ev.name, (0, 0.0))
-            by_name[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            n, us = by_name.get(ev.name(), (0, 0.0))
+            by_name[ev.name()] = (n + 1, us + ev.duration_ns() / 1e3)
     busy_us = sum(us for _, us in by_name.values())
     check(busy_us > 0, "the profiler saw no device time")
     ours = sum(us for name, (_, us) in by_name.items()
@@ -1569,11 +1605,15 @@ def xlstm_phase(rows):
 # phase 10: the paper's evaluation
 # ---------------------------------------------------------------------------
 
-FIG1_ITERATIONS = 120
+# the reference scripts run Fig. 1 for 120 iterations: cut to 60 (and
+# phase 11's swept Fig. 1 with it) to keep the script within half its
+# time limit
+FIG1_ITERATIONS = 60
 FIG2_ITERATIONS = 40
-# the reference's --fast Table 2: AFTO and ADBO run GRAD_EQUAL (5) times
-# this many iterations, FedNest this many
-TABLE2_ITERATIONS = 60
+# the reference's --fast Table 2 runs AFTO and ADBO GRAD_EQUAL (5) times
+# this many iterations and FedNest this many, at 60: cut to 40 (AFTO and
+# ADBO 200 iterations) to pay for phase 14
+TABLE2_ITERATIONS = 40
 RATE_ITERATIONS = 400
 COMM_ITERATIONS = 60
 
@@ -1776,8 +1816,8 @@ SWEEP_SHAPES = ((2,) + MAIN_SHAPE, (4,) + MAIN_SHAPE, (2,) + DA_SHAPE)
 # a swept row against the serial scan run of its method and seed
 SWEEP_RTOL = 1e-4
 # Table 2's two seeds, each way; the swept-against-looped record
-TABLE2_SWEEP_ITERATIONS = 100
-SPEED_RUNS, SPEED_ITERATIONS = 4, 30
+TABLE2_SWEEP_ITERATIONS = 60
+SPEED_RUNS, SPEED_ITERATIONS = 4, 15
 
 
 @contextlib.contextmanager
@@ -2196,6 +2236,7 @@ def swept_paper_runs(rows, ww_specs):
     check_sweep_rows("white-wine fused route, seeds 0 and 1", runs[0],
                      [{"result": PHASE4["fused"], "seconds": float("nan")},
                       serial[0]])
+    PHASE11["fused seed 1"] = serial[0]["result"]
     check(runs[0]["launches"].get("fused_round_runs", 0) > 0,
           "fused_round_runs never launched on the swept fused route")
     rows["fused_round_runs"]["launches"] = int(
@@ -2222,6 +2263,11 @@ def swept_paper_runs(rows, ww_specs):
     check_sweep_rows("rate_thm45 seeds 0 and 1", runs[0],
                      PHASE10["rate_thm45"])
     return ww_sweep
+
+
+# phase 11's serial white-wine run of the fused route at schedule seed 1,
+# which phase 14's sharded sweep is held to
+PHASE11 = {}
 
 
 def sweep_phase(rows, ww_specs):
@@ -2397,6 +2443,9 @@ def batch_ms(stream, t_hats):
 
 
 BIND_DIM = 4_096
+# phase 12 (a')'s plain-route run, which phase 14's streamed legs are held
+# to
+PHASE12 = {}
 
 
 def binding_part(launches):
@@ -2444,6 +2493,7 @@ def binding_part(launches):
     for name in ("plain", "fused_plain"):
         check(sum(res[name][2].values()) == 0,
               f"(a') the {name} route launched {res[name][2]}")
+    PHASE12["(a') plain"] = (res["plain"][0], hyper)
     launches["(a') binding, cut kernels"] = res["kernel"][2]
     launches["(a') binding, fused kernel"] = res["fused"][2]
     check(res["fused"][2].get("fused_round", 0) > 0,
@@ -2615,8 +2665,8 @@ def stream_phase(rows, ww_specs):
     for k in ("matvec", "vecmat", "fused_round", "matvec_runs",
               "vecmat_runs"):
         check(totals.get(k, 0) > 0, f"phase 12: {k} never launched")
-    record = engine_speed.streamed_record(100, reps=1, device="cuda")
-    print("  engine_speed.streamed_record (quickstart, 100 iterations, not "
+    record = engine_speed.streamed_record(50, reps=1, device="cuda")
+    print("  engine_speed.streamed_record (quickstart, 50 iterations, not "
           f"gated): {json.dumps(record['streamed'])}", flush=True)
     print(f"phase 12 (streams, chunked runs and checkpoints): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -2630,12 +2680,16 @@ def stream_phase(rows, ww_specs):
 ASYNC_CKPT_EVERY = 40
 ASYNC_KILL_AT = 80
 CHAOS_ITERATIONS = 60
+LIVE_ITERATIONS = 60
 FED_ITERATIONS = 60
-# the in-process TCP legs, paced at 0.12 / 0.1 s an iteration: 48 / 35 s,
-# twice what a respawned or late worker process took to come back on the
-# card while the command-line legs started beside it (PERF.md, section 6)
-KILL_ITERATIONS = 400
-ELASTIC_ITERATIONS = 350
+# the in-process TCP legs, run side by side, paced at 0.12 / 0.1 s an
+# iteration until the respawned or late worker process is back and
+# PACED_TAIL iterations more, then unpaced: up to 54 / 45 s for a process
+# to come back on the card, twice what one took while the command-line
+# legs started beside it (20-27 / 16-18 s, PERF.md, section 6)
+KILL_ITERATIONS = 450
+ELASTIC_ITERATIONS = 450
+PACED_TAIL = 20
 # fault deadlines of seconds on the card (the defaults, but a quicker
 # heartbeat and poll)
 ASYNC_FAULT = dict(heartbeat_every=0.05, resend_every=0.2,
@@ -2732,12 +2786,13 @@ def async_live_part(replayed, launches):
 
     _, _, aspec, _ = replayed["kernel"]
     live_spec = dataclasses.replace(aspec, schedule=None,
-                                    n_iterations=N_ITERATIONS)
+                                    n_iterations=LIVE_ITERATIONS)
     live, secs, got = timed_call(lambda: run(live_spec))
     rec = live.arrivals
     stale = int(rec.max_staleness.max())
     counts = rec.active.sum(1)
-    print(f"  (b) live white-wine run: {secs / N_ITERATIONS * 1e3:.3f} ms "
+    print(f"  (b) live white-wine run, {LIVE_ITERATIONS} iterations: "
+          f"{secs / LIVE_ITERATIONS * 1e3:.3f} ms "
           f"per master iteration, max recorded staleness {stale} (tau "
           f"{aspec.hyper.tau}), workers per iteration min "
           f"{int(counts.min())} mean {counts.mean():.2f} max "
@@ -2922,6 +2977,13 @@ def wait_for(master, cond, timeout=120.0):
     return cond()
 
 
+def unpace(master, marks, since):
+    """Drop the master's pacing PACED_TAIL iterations after `since`."""
+    wait_for(master, lambda: master.status["t"] >= since + PACED_TAIL)
+    marks["unpaced_at"] = master.status["t"]
+    master.fault = dataclasses.replace(master.fault, min_iter_time=0.0)
+
+
 def fed_kill_leg(times):
     """Worker 0 SIGKILLed mid-run and respawned with --epoch 1."""
     from repro_torch.core import run_scanned
@@ -2949,6 +3011,7 @@ def fed_kill_leg(times):
             and st["workers"][0]["epoch"] >= 1)
         marks["rejoin_at"] = st["t"]
         marks["status"] = st
+        unpace(master, marks, marks["rejoin_at"])
 
     res, secs, marks = tcp_run(args, watcher, dict(
         ASYNC_FAULT, min_iter_time=0.12))
@@ -2971,7 +3034,8 @@ def fed_kill_leg(times):
           f"{marks['rejoin_at']}; "
           f"deaths {st['deaths']}, rejoins {st['rejoins']}, recorded dead "
           f"in {dead.size} iterations ({int(dead[0]) + 1}-"
-          f"{int(dead[-1]) + 1}); replay through run_scanned {rel:.2e}; "
+          f"{int(dead[-1]) + 1}), unpaced at {marks.get('unpaced_at')} of "
+          f"{KILL_ITERATIONS}; replay through run_scanned {rel:.2e}; "
           f"{secs:.1f} s", flush=True)
 
 
@@ -2992,6 +3056,7 @@ def fed_elastic_leg(times):
         marks["admitted"] = wait_for(master,
                                      lambda: master.hyper.n_workers >= 5)
         marks["admitted_at"] = master.status["t"]
+        unpace(master, marks, marks["admitted_at"])
 
     res, secs, marks = tcp_run(args, watcher, dict(
         ASYNC_FAULT, min_iter_time=0.1))
@@ -3012,19 +3077,27 @@ def fed_elastic_leg(times):
     print(f"  (e) tcp --max-workers 5: worker 4 started at iteration "
           f"{marks.get('started_at')}, admitted at "
           f"{marks.get('admitted_at')} (width column {int(rec.width[0])} -> "
-          f"{int(rec.width[-1])}), bitwise equal to run_scanned_elastic; "
+          f"{int(rec.width[-1])}), unpaced at {marks.get('unpaced_at')} of "
+          f"{ELASTIC_ITERATIONS}, bitwise equal to run_scanned_elastic; "
           f"{secs:.1f} s", flush=True)
 
 
 def serve_fed_part(times, tmp):
     """(e) `serve fed` over TCP with worker subprocesses on the card: the
-    two command-line runs go on beside the two in-process legs."""
+    two command-line runs go on beside the two in-process legs, which go
+    on side by side, each on its own thread (a failed check there ends
+    the script when its result is read)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     legs = {"tcp": [], "tcp --stream": ["--stream"]}
     started = {label: start_serve_fed_cli(extra, Path(tmp) / f"{i}.log")
                for i, (label, extra) in enumerate(legs.items())}
     try:
-        fed_kill_leg(times)
-        fed_elastic_leg(times)
+        with ThreadPoolExecutor(2) as pool:
+            done = [pool.submit(leg, times)
+                    for leg in (fed_kill_leg, fed_elastic_leg)]
+        for d in done:
+            d.result()
         for i, (label, extra) in enumerate(legs.items()):
             finish_serve_fed_cli(label, extra, *started[label],
                                  Path(tmp) / f"{i}.log", times)
@@ -3086,7 +3159,344 @@ def async_phase(rows, ww_specs, ww_ms):
     return dataclasses.replace(aspec, schedule=aspec.schedule.slice(0, 20))
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the worker mesh
+# ---------------------------------------------------------------------------
+
+# one job of MESH_RANKS gloo ranks on the card; a narrower mesh is the
+# job's first ranks (`make_worker_mesh`), the NCCL mesh its first rank
+MESH_RANKS = 4
+MESH_TIMEOUT = 300.0
+# one refresh (t_pre = 10) on each mesh before its timed legs
+MESH_WARMUP = 12
+MESH_PROFILE_ITERATIONS = 30
+# tests/test_sharded_engine.py:40-56
+MESH_STATE_TOL = dict(rtol=5e-5, atol=1e-6)
+MESH_HIST_TOL = dict(rtol=5e-4, atol=1e-6)
+
+
+def host_result(res):
+    """A run's result with its state on the host (to cross processes)."""
+    import torch.utils._pytree as pytree
+    return dataclasses.replace(
+        res, state=pytree.tree_map(lambda x: x.cpu(), res.state))
+
+
+def digest(res) -> str:
+    """sha256 of a result's state leaves and history (host_time aside)."""
+    import hashlib
+
+    import torch
+    from repro_torch.utils.tree import tree_flatten
+
+    h = hashlib.sha256()
+    for x in tree_flatten(res.state)[0]:
+        h.update(x.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    for k in sorted(res.history):
+        if k != "host_time":
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(res.history[k]).tobytes())
+    return h.hexdigest()
+
+
+def aligned_diffs(got, want, t_offset=0):
+    """Names of the state leaves, and of the history keys at the
+    iterations both record (`got`'s t shifted by `t_offset`), that differ
+    in any bit (host_time aside)."""
+    import torch
+    from repro_torch.utils.tree import tree_flatten
+
+    out = [f"state leaf {i}" for i, (x, y) in enumerate(zip(
+        tree_flatten(got.state)[0], tree_flatten(want.state)[0]))
+        if not (x.dtype == y.dtype and torch.equal(x, y))]
+    t_got = np.asarray(got.history["t"]) + t_offset
+    t_want = np.asarray(want.history["t"])
+    mine, theirs = np.isin(t_got, t_want), np.isin(t_want, t_got)
+    if not theirs.any():
+        out.append("no common history rows")
+    for k, v in got.history.items():
+        if k not in ("t", "host_time") and not np.array_equal(
+                np.asarray(v)[mine], np.asarray(want.history[k])[theirs]):
+            out.append(f"history {k}")
+    return out
+
+
+def mesh_rank(world):
+    """Phase 14 on one rank of the MESH_RANKS-rank gloo job sharing the
+    card: the legs on the meshes of its first 2, 3 and 4 ranks (gloo) and
+    of its first rank (NCCL), each timed on every member: {"started",
+    "ready": wall-clock times on entry and with the problems built,
+    "legs": {leg: record}}, with the results of rank 0."""
+    started = time.time()
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core import RunSpec, StragglerScheduler, afto, run
+    from repro_torch.kernels import cut_eval as K
+    from repro_torch.launch.mesh import make_worker_mesh
+
+    task, hyper, cfg = white_wine()
+    plain = dataclasses.replace(hyper, cut_impl="ref")
+    schedule = StragglerScheduler(cfg).precompute(N_ITERATIONS)
+    spec = RunSpec(problem=task.problem, hyper=plain, schedule=schedule,
+                   metrics_every=10, engine="scan", device="cuda")
+    sweep = dataclasses.replace(spec, engine="sweep", schedule=None,
+                                scheduler=cfg, n_iterations=N_ITERATIONS,
+                                seeds=(0, 1))
+    qprob, qhyper, qcfg, qstream = quadratic_stream_setup(BIND_DIM,
+                                                          b_unit=True)
+    qspec = RunSpec(problem=qprob, hyper=qhyper, schedule=StragglerScheduler(
+        qcfg).precompute(STREAM_ITERATIONS), metrics_every=5, data=qstream,
+        engine="scan", device="cuda")
+    ready = time.time()
+    out = {}
+
+    def leg(label, mesh, fn):
+        if not mesh.member:
+            return None
+        torch.cuda.synchronize()
+        K.reset_launches()
+        mesh.reset_traffic()
+        t0 = time.perf_counter()
+        res = fn(mesh)
+        torch.cuda.synchronize()
+        out[label] = dict(
+            seconds=time.perf_counter() - t0, width=mesh.size,
+            backend=mesh.backend, traffic=dict(mesh.traffic),
+            calls=dict(mesh.calls), reduce_s=dict(mesh.seconds),
+            launches=dict(K.LAUNCHES), digest=digest(res),
+            result=host_result(res) if mesh.rank == 0 else None)
+        return res
+
+    def warm(mesh, s):
+        if mesh.member:
+            run(dataclasses.replace(
+                s, schedule=s.schedule.slice(0, MESH_WARMUP), mesh=mesh))
+
+    mesh2 = make_worker_mesh(2, backend="gloo", device="cuda")
+    warm(mesh2, spec)
+    full = leg("(a) white wine, 2 ranks", mesh2,
+               lambda m: run(dataclasses.replace(spec, mesh=m)))
+    if mesh2.member:
+        with tempfile.TemporaryDirectory(prefix="phase14_ckpt_") as tmp:
+            def hook(state, _t):
+                save_checkpoint(tmp, state, int(state.t), keep=4)
+
+            chunked = leg("(e) chunks", mesh2, lambda m: run_in_chunks(
+                dataclasses.replace(spec, mesh=m), schedule, WW_CHUNKS,
+                hook)[0])
+            start = load_checkpoint(tmp, afto.init_state(task.problem, plain),
+                                    step=WW_RESUME)
+        resumed = leg("(e) resumed", mesh2, lambda m: run(dataclasses.replace(
+            spec, schedule=schedule.slice(WW_RESUME, N_ITERATIONS),
+            state=start, mesh=m)))
+        out["(e) chunks"]["diffs"] = aligned_diffs(chunked, full)
+        out["(e) resumed"]["diffs"] = aligned_diffs(resumed, full,
+                                                    WW_RESUME)
+    leg("(d) white-wine sweep of 2, 2 ranks", mesh2,
+        lambda m: run(dataclasses.replace(sweep, mesh=m)))
+    leg("(c) streamed quadratic, 2 ranks", mesh2,
+        lambda m: run(dataclasses.replace(qspec, mesh=m)))
+    if mesh2.member:
+        mesh2.profile = True
+        leg("(f) white wine, 2 ranks, collectives timed", mesh2,
+            lambda m: run(dataclasses.replace(
+                spec, schedule=schedule.slice(0, MESH_PROFILE_ITERATIONS),
+                mesh=m)))
+        mesh2.profile = False
+
+    mesh3 = make_worker_mesh(3, backend="gloo", device="cuda")
+    warm(mesh3, spec)
+    leg("(a) white wine, 3 ranks", mesh3,
+        lambda m: run(dataclasses.replace(spec, mesh=m)))
+    warm(world, qspec)
+    leg("(c) streamed quadratic, 4 ranks", world,
+        lambda m: run(dataclasses.replace(qspec, mesh=m)))
+    mesh1 = make_worker_mesh(1, backend="nccl", device="cuda")
+    warm(mesh1, spec)
+    leg("(b) white wine, 1-rank NCCL", mesh1,
+        lambda m: run(dataclasses.replace(spec, mesh=m)))
+    return {"started": started, "ready": ready, "legs": out}
+
+
+def expected_traffic(hyper, spec, segments, metrics_every, runs=1):
+    """{label: bytes} that `core.sharded.traffic_record` predicts for a
+    run over the iteration `segments` ([a, b) each, one call each)."""
+    from repro_torch.core.engine import record_slots, refresh_due
+    from repro_torch.core.sharded import traffic_record
+
+    rec = traffic_record(spec, hyper)
+    out = {"step": 0, "refresh": 0, "gap": 0, "gap_aux": 0}
+    for a, b in segments:
+        its, _ = record_slots(b - a, metrics_every)
+        due = {t for t in range(a + 1, b + 1) if refresh_due(hyper, t)}
+        out["step"] += (b - a) * rec["step_bytes"]
+        out["refresh"] += len(due) * rec["refresh_bytes"]
+        out["gap"] += len(its) * rec["gap_bytes"]
+        out["gap_aux"] += sum(a + int(i) + 1 in due for i in its) \
+            * rec["gap_aux_bytes"]
+    return {k: v * runs for k, v in out.items()}
+
+
+def check_mesh_state(label, got, want):
+    """Every state leaf of `got` within MESH_STATE_TOL of `want`'s."""
+    from repro_torch.utils.tree import tree_flatten
+
+    worst = (0.0, -1)
+    ga, gb = tree_flatten(got)[0], tree_flatten(want)[0]
+    check(len(ga) == len(gb), f"{label}: state layouts differ")
+    for i, (x, y) in enumerate(zip(ga, gb)):
+        x = x.detach().cpu().double().numpy()
+        y = y.detach().cpu().double().numpy()
+        excess = np.abs(x - y) / (MESH_STATE_TOL["atol"]
+                                  + MESH_STATE_TOL["rtol"] * np.abs(y))
+        worst = max(worst, (float(excess.max(initial=0.0)), i))
+    print(f"  {label}: final state within {worst[0]:.3f} of the tolerance "
+          f"(rtol {MESH_STATE_TOL['rtol']}, atol {MESH_STATE_TOL['atol']};"
+          f" worst leaf {worst[1]})", flush=True)
+    check(worst[0] <= 1.0, f"{label}: state leaf {worst[1]} beyond "
+          f"the tolerance ({worst[0]:.3f})")
+
+
+def check_mesh_history(label, h, hr):
+    rel = float(np.max(np.abs(h["gap_sq"] - hr["gap_sq"])
+                       / np.abs(hr["gap_sq"])))
+    print(f"  {label} gap_sq: max rel diff {rel:.3e}", flush=True)
+    check(bool(np.allclose(h["gap_sq"], hr["gap_sq"], **MESH_HIST_TOL)),
+          f"{label}: gap_sq beyond rtol {MESH_HIST_TOL['rtol']}")
+    for k in ("t", "n_cuts_i", "n_cuts_ii", "sim_time", "max_staleness"):
+        check(np.array_equal(np.asarray(h[k], np.float64),
+                             np.asarray(hr[k], np.float64)),
+              f"{label}: {k} differs")
+
+
+def mesh_phase(rows, ww_ms, ww_specs):
+    """Phase 14: the worker-mesh sharded engine on the card."""
+    from repro_torch.launch.mesh import spawn_mesh
+
+    t0, wall0 = time.perf_counter(), time.time()
+    ranks = spawn_mesh("chip_smoke:mesh_rank", MESH_RANKS, backend="gloo",
+                       device="cuda", pythonpath=[str(ROOT)],
+                       timeout=MESH_TIMEOUT)
+    started = max(r["started"] for r in ranks) - wall0
+    ready = max(r["ready"] for r in ranks) - wall0
+    out = [r["legs"] for r in ranks]
+    legs = out[0]
+    want = PHASE4["plain"]
+    ww_spec = want.state.cuts_ii.spec
+    hyper = ww_specs["plain"].hyper
+    q, qhyper = PHASE12["(a') plain"]
+    totals = {}
+    for label, rec in legs.items():
+        members = [o[label] for o in out if label in o]
+        check(len(members) == rec["width"],
+              f"{label}: {len(members)} records for {rec['width']} shards")
+        check(all(m["digest"] == rec["digest"] for m in members),
+              f"{label}: the shards' results differ")
+        for k, v in rec["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        ms = rec["seconds"] * 1e3
+        res = rec["result"]
+        if label.startswith("(a)") or label.startswith("(b)"):
+            check_mesh_history(f"(a/b) {label} vs phase 4 plain",
+                               res.history, want.history)
+            check_mesh_state(f"(a/b) {label} vs phase 4 plain", res.state,
+                             want.state)
+            segments, runs, me = [(0, N_ITERATIONS)], 1, 10
+            ms /= N_ITERATIONS
+        elif label.startswith("(c)"):
+            check_mesh_history(f"{label} vs phase 12 (a') plain",
+                               res.history, q.history)
+            check_mesh_state(f"{label} vs phase 12 (a') plain", res.state,
+                             q.state)
+            print_multipliers(label, res.state)
+            check(float(res.state.gamma_k.max()) > 0,
+                  f"{label}: no level-2 cut binds")
+            segments, runs, me = [(0, STREAM_ITERATIONS)], 1, 5
+            ms /= STREAM_ITERATIONS
+        elif label.startswith("(d)"):
+            for r, ref in enumerate((PHASE4["fused"],
+                                     PHASE11["fused seed 1"])):
+                row = res.run(r)
+                check_mesh_history(f"{label} row {r} vs phase 11 serial",
+                                   row.history, ref.history)
+                check_mesh_state(f"{label} row {r} vs phase 11 serial",
+                                 row.state, ref.state)
+            segments, runs, me = [(0, N_ITERATIONS)], 2, 10
+            ms /= N_ITERATIONS
+        elif label == "(e) chunks":
+            check(not rec["diffs"], f"{label}: differs from (a) in "
+                  f"{rec['diffs'][:6]}")
+            segments, runs, me = list(zip(WW_CHUNKS[:-1], WW_CHUNKS[1:])), \
+                1, 10
+            ms /= N_ITERATIONS
+        elif label == "(e) resumed":
+            check(not rec["diffs"], f"{label}: differs from (a) in "
+                  f"{rec['diffs'][:6]}")
+            segments, runs, me = [(WW_RESUME, N_ITERATIONS)], 1, 10
+            ms /= N_ITERATIONS - WW_RESUME
+        else:
+            segments, runs, me = [(0, MESH_PROFILE_ITERATIONS)], 1, 10
+            ms /= MESH_PROFILE_ITERATIONS
+        hy, spec = (qhyper, q.state.cuts_ii.spec) if label.startswith(
+            "(c)") else (hyper, ww_spec)
+        expect = expected_traffic(hy, spec, segments, me, runs)
+        for m in members:
+            got = {k: m["traffic"].get(k, 0) for k in expect}
+            check(got == expect, f"{label}: all-reduced bytes {got} != "
+                  f"traffic_record's {expect}")
+        extra = ""
+        if rec["reduce_s"]:
+            spent = sum(rec["reduce_s"].values())
+            extra = (f"; {sum(rec['calls'].get(k, 0) for k in expect)} "
+                     f"all-reduces, {spent / rec['seconds']:.1%} of the "
+                     "wall time in them (device synchronised first): "
+                     + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                 for k, v in rec["reduce_s"].items()))
+        if "diffs" in rec:
+            extra += "; bitwise equal to (a)"
+        print(f"  {label}: {ms:.3f} ms per master iteration (phase 4's "
+              f"unsharded plain scan: {ww_ms['plain']:.3f}); bytes per "
+              f"shard {dict(sorted(rec['traffic'].items()))} = "
+              f"traffic_record's; shards bitwise equal{extra}; launches "
+              + (", ".join(f"{k} {v}" for k, v in sorted(
+                  rec["launches"].items())) or "none"), flush=True)
+    check(sum(totals.values()) == 0,
+          f"phase 14 launched the port's kernels: {totals} (the sharded "
+          "path contracts the cut matrix with plain products)")
+    for k in KERNELS:
+        rows[k]["launches_phase14"] = int(totals.get(k, 0))
+    print(f"phase 14 (the worker mesh, {MESH_RANKS} gloo ranks on the card, "
+          f"every rank in its job {started:.1f} s and its problems built "
+          f"{ready:.1f} s after the spawn): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+# past this many seconds every thread's stack goes to standard error, so
+# that a run stopped at its time limit shows where it was
+WATCHDOG_S = 900.0
+CLOCK0 = time.perf_counter()
+
+
+def clocked(label, fn, *args):
+    """fn(*args), its seconds and the script's clock printed to standard
+    output and (for a run that is cut) standard error."""
+    t0 = time.perf_counter()
+    print(f"[clock] {label} starts at {t0 - CLOCK0:.1f} s", file=sys.stderr,
+          flush=True)
+    out = fn(*args)
+    t1 = time.perf_counter()
+    msg = f"[clock] {label}: {t1 - t0:.1f} s, ends at {t1 - CLOCK0:.1f} s"
+    print(msg, flush=True)
+    print(msg, file=sys.stderr, flush=True)
+    return out
+
+
 def main() -> None:
+    import faulthandler
+
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch is not beside chip_smoke.py: run it from a "
              "checkout of the repository")
@@ -3095,36 +3505,48 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA card")
-    smi = environment()
-    rows = kernel_phase()
-    fused_phase(rows)
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=False)
+    smi = clocked("phase 1", environment)
+    rows = clocked("phase 2", kernel_phase)
+    clocked("phase 3", fused_phase, rows)
     # phase 11's kernel checks, beside phases 2 and 3 (its sweeps need
     # phases 4 and 10 first)
-    batched_kernel_phase(rows)
-    ww_ms, ww_specs = slice_phase(rows)
-    da_ms, da_launches, da_spec = da_phase(rows)
-    profile_phase("white-wine, cut kernels (two refreshes)",
-                  ww_specs["kernel"])
-    profile_phase("white-wine, fused kernel (two refreshes)",
-                  ww_specs["fused"])
-    profile_phase("domain adaptation, fused kernel (one refresh)", da_spec)
-    llm_kernel_phase(rows)
-    llama_phase(rows)
-    xlstm_phase(rows)
-    profiled = paper_phase()
-    sweep_spec = sweep_phase(rows, ww_specs)
-    stream_spec = stream_phase(rows, ww_specs)
-    async_spec = async_phase(rows, ww_specs, ww_ms)
-    # under the profiler after every timed run: it slows later host
-    # launches
-    for label, run in profiled.items():
-        profile_run(label, run)
-    profile_phase("white-wine sweep of 2 (AFTO, seeds 0 and 1), batched "
-                  "cut kernels (two refreshes)", sweep_spec)
-    profile_phase(f"streamed quadratic, dim {STREAM_DIM:,}, cut kernels "
-                  "(four refreshes)", stream_spec)
-    profile_phase("white-wine async runtime, 6 worker threads, cut kernels "
-                  "(two refreshes)", async_spec)
+    clocked("phase 11 kernels", batched_kernel_phase, rows)
+    ww_ms, ww_specs = clocked("phase 4", slice_phase, rows)
+    da_ms, da_launches, da_spec = clocked("phase 5", da_phase, rows)
+
+    def phase6():
+        profile_phase("white-wine, cut kernels (two refreshes)",
+                      ww_specs["kernel"])
+        profile_phase("white-wine, fused kernel (two refreshes)",
+                      ww_specs["fused"])
+        profile_phase("domain adaptation, fused kernel (one refresh)",
+                      da_spec)
+
+    clocked("phase 6", phase6)
+    clocked("phase 7", llm_kernel_phase, rows)
+    clocked("phase 8", llama_phase, rows)
+    clocked("phase 9", xlstm_phase, rows)
+    profiled = clocked("phase 10", paper_phase)
+    sweep_spec = clocked("phase 11 sweeps", sweep_phase, rows, ww_specs)
+    stream_spec = clocked("phase 12", stream_phase, rows, ww_specs)
+    async_spec = clocked("phase 13", async_phase, rows, ww_specs, ww_ms)
+    clocked("phase 14", mesh_phase, rows, ww_ms, ww_specs)
+
+    def late_profiles():
+        # under the profiler after every timed run: it slows later host
+        # launches
+        for label, run in profiled.items():
+            profile_run(label, run)
+        profile_phase("white-wine sweep of 2 (AFTO, seeds 0 and 1), "
+                      "batched cut kernels (two refreshes)", sweep_spec)
+        profile_phase(f"streamed quadratic, dim {STREAM_DIM:,}, cut "
+                      "kernels (four refreshes)", stream_spec)
+        profile_phase("white-wine async runtime, 6 worker threads, cut "
+                      "kernels (two refreshes)", async_spec)
+
+    clocked("the later profiles", late_profiles)
+    faulthandler.cancel_dump_traceback_later()
     print("ms/iteration, mean of two runs per route: white-wine "
           + ", ".join(f"{k} {v:.3f}" for k, v in ww_ms.items())
           + "; domain adaptation "

@@ -101,10 +101,20 @@ def local_f1_grads(problem: TrilevelProblem, X1, X2, X3) -> Tuple:
 
 
 def afto_step_aux(problem: TrilevelProblem, hyper: Hyper, state: AFTOState,
-                  active) -> Tuple[AFTOState, dict]:
+                  active, mesh=None) -> Tuple[AFTOState, dict]:
     """`afto_step` plus the step's cut products (the II-polytope operator
     and the cut values at the post-step point), which the stationarity gap
-    reuses at record iterations while the polytope is unchanged."""
+    reuses at record iterations while the polytope is unchanged.
+
+    mesh, when set, is the `launch.mesh.WorkerMesh` of a sharded run:
+    `state` / `problem.data` / `active` then carry only this shard's
+    workers, the polytopes its local columns (`fed.sharding.
+    shard_state`), and the only traffic over the mesh is one sum of the
+    theta-sum and the cut scalars' b-part (`core.sharded`)."""
+    if mesh is not None:
+        from repro_torch.core import sharded
+        return sharded.afto_step_sharded(
+            sharded.Local(problem, hyper, mesh), state, active)
     grads = local_f1_grads(problem, state.X1, state.X2, state.X3)
     return afto_step_from_grads(problem, hyper, state, active, grads)
 
@@ -119,7 +129,22 @@ def afto_step_from_grads(problem: TrilevelProblem, hyper: Hyper,
                          ) -> Tuple[AFTOState, dict]:
     """The master half of Eq. 16-21 given the worker f1-grads stack
     triple of `local_f1_grads` (rows of inactive workers are masked)."""
-    t = state.t
+    X, ga, theta_sum = step_workers(problem, hyper, state, active, f1_grads)
+    fc = state.cuts_ii
+    X2, X3 = X[1], X[2]
+    return step_master(
+        problem, hyper, state, active, X, ga, theta_sum,
+        lambda z1, z2, z3: cuts_lib.eval_cuts_flat(
+            fc.a, cuts_lib.flatten_point(fc.spec, z1, z2, z3, X2, X3),
+            fc.c, fc.active, impl=hyper.cut_impl))
+
+
+def step_workers(problem: TrilevelProblem, hyper: Hyper, state: AFTOState,
+                 active, f1_grads):
+    """The workers' part of a step: Eq. 16's masked updates (X1, X2, X3),
+    the master's a-block cut gradients (ga1, ga2, ga3) from one w @ A
+    product, and the sum of the consensus duals over the workers (a
+    shard's partial sum on a worker mesh)."""
     g1_f, g2_f, g3_f = f1_grads
 
     # consensus dual term (stale own theta) and cut terms (stale lambda)
@@ -136,23 +161,32 @@ def afto_step_from_grads(problem: TrilevelProblem, hyper: Hyper,
     X2 = masked_step(state.X2, g2, hyper.eta_x)
     X3 = masked_step(state.X3, g3, hyper.eta_x)
 
-    # ---- master Gauss-Seidel primal updates (Eqs. 17-19): the a-block
-    #      gradients for z1/z2/z3 come out of one w @ A product
+    # the a-block gradients for z1/z2/z3 come out of one w @ A product
     lam_a = state.lam * state.cuts_ii.active
-    spec = state.cuts_ii.spec
-    a_flat = state.cuts_ii.a
     ga1, ga2, ga3, _, _ = cuts_lib.cut_weighted_coeff_flat(
-        spec, a_flat, lam_a)
+        state.cuts_ii.spec, state.cuts_ii.a, lam_a)
     theta_sum = tree_map(lambda th: torch.sum(th, dim=0), state.theta)
+    return (X1, X2, X3), (ga1, ga2, ga3), theta_sum
+
+
+def step_master(problem: TrilevelProblem, hyper: Hyper, state: AFTOState,
+                active, X, ga, theta_sum, cut_values
+                ) -> Tuple[AFTOState, dict]:
+    """The master's part of a step (Eqs. 17-21) after `step_workers`:
+    `theta_sum` is the sum over every worker, and `cut_values(z1, z2,
+    z3)` gives the II-layer cut values at the new point."""
+    t = state.t
+    X1, X2, X3 = X
+    ga1, ga2, ga3 = ga
+
+    # ---- master Gauss-Seidel primal updates (Eqs. 17-19)
     gz1 = tree_axpy(-1.0, theta_sum, ga1)
     z1 = tree_axpy(-hyper.eta_z, gz1, state.z1)
     z2 = tree_axpy(-hyper.eta_z, ga2, state.z2)
     z3 = tree_axpy(-hyper.eta_z, ga3, state.z3)
 
     # ---- dual updates with projection (Eqs. 20/21)
-    cutval = cuts_lib.eval_cuts_flat(
-        a_flat, cuts_lib.flatten_point(spec, z1, z2, z3, X2, X3),
-        state.cuts_ii.c, state.cuts_ii.active, impl=hyper.cut_impl)
+    cutval = cut_values(z1, z2, z3)
     lam = proj_lambda(
         state.lam + hyper.eta_lambda * (cutval - hyper.c1(t) * state.lam),
         hyper) * state.cuts_ii.active
@@ -180,7 +214,7 @@ def afto_step_from_grads(problem: TrilevelProblem, hyper: Hyper,
     new_state = dataclasses.replace(
         state, X1=X1, X2=X2, X3=X3, z1=z1, z2=z2, z3=z3,
         theta=theta, lam=lam, stale=stale, t=t + 1)
-    return new_state, {"flat_ii": a_flat, "cutval": cutval}
+    return new_state, {"flat_ii": state.cuts_ii.a, "cutval": cutval}
 
 
 # ---------------------------------------------------------------------------

@@ -169,6 +169,19 @@ def _leaf_range(spec: FlatSpec, b_idx: int) -> Tuple[int, int]:
     return start, start + spec.nleaves[b_idx]
 
 
+def cut_weighted_coeff(cuts: FlatCuts, weights, block: str):
+    """sum_l w_l * coeff_block_l over the active slots: the gradient of
+    sum_l w_l * cutval_l w.r.t. the variable of `block` ("a1".."b3"),
+    read off the block's columns of the stored matrix (b-blocks keep the
+    worker axis)."""
+    spec = cuts.spec
+    w = (weights * cuts.active).float()
+    lo, hi = _leaf_range(spec, _BLOCK_NAMES.index(block))
+    leaves = [(w @ _cols(cuts.a, spec, i)).reshape(spec.shapes[i])
+              .to(spec.dtypes[i]) for i in range(lo, hi)]
+    return tree_unflatten(spec.tdefs[_BLOCK_NAMES.index(block)], leaves)
+
+
 # ---------------------------------------------------------------------------
 # evaluation / contraction (all read the stored matrix)
 # ---------------------------------------------------------------------------
@@ -287,6 +300,51 @@ def unshard_cuts(fc: FlatCuts, spec: FlatSpec) -> FlatCuts:
                     col.permute(1, 0, 2).reshape(p, spec.sizes[i]))
     return FlatCuts(a=torch.cat(cols, dim=-1), c=fc.c, active=fc.active,
                     age=fc.age, spec=spec)
+
+
+def b_col_start(spec: FlatSpec) -> int:
+    """First column of the worker (b2, b3) blocks."""
+    na = n_a_leaves(spec)
+    return spec.offsets[na] if na < len(spec.offsets) else spec.d_total
+
+
+def a_cols_matvec(fc: FlatCuts, z1, z2, z3):
+    """Raw (unmasked, un-offset) master contraction A_a @ [z1; z2; z3]
+    over the a-columns: a plain product on a column view of the stored
+    matrix, as the reference leaves it to XLA.  With `b_cols_matvec`,
+    the one definition of the a/b column split that the sharded step,
+    refresh and rollouts share."""
+    da = b_col_start(fc.spec)
+    va = torch.cat([leaf.reshape(-1).float() for block in (z1, z2, z3)
+                    for leaf in tree_flatten(block)[0]])
+    return fc.a[:, :da].float() @ va
+
+
+def b_cols_matvec(fc: FlatCuts, X2, X3):
+    """Raw per-slot worker contraction sum_j <b_j, x_j> over this view's
+    b-columns (shard-partial on a `shard_cuts` local view).  X2 may be
+    None (layer-I cuts carry no b2 coefficients)."""
+    da = b_col_start(fc.spec)
+    vb = flatten_point(fc.spec, None, None, None, X2, X3)[da:]
+    return fc.a[:, da:].float() @ vb
+
+
+def worker_split_values(fc: FlatCuts, z1, z2, z3, b_agg):
+    """Cut values from the a-column contraction and the b-part `b_agg`
+    summed over the mesh: (A_a z + b_agg - c) * active."""
+    return (a_cols_matvec(fc, z1, z2, z3) + b_agg - fc.c) * fc.active
+
+
+def eval_cuts_worker_split(fc: FlatCuts, z1, z2, z3, X2, X3, mesh,
+                           label: str = "cutval"):
+    """Global cut values from a worker-sharded polytope: the a-columns
+    contract shard-locally (the master variables are replicated) and
+    only the local b-column contribution, the per-worker cut scalars
+    Alg. 1 federates, is summed over the mesh.  Forward only: the
+    differentiated sharded paths assemble their derivatives by hand
+    (`core.sharded`)."""
+    b_agg = mesh.all_reduce(**{label: b_cols_matvec(fc, X2, X3)})[label]
+    return worker_split_values(fc, z1, z2, z3, b_agg)
 
 
 def grow_spec(spec: FlatSpec, n_new: int) -> FlatSpec:

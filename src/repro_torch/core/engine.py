@@ -34,6 +34,12 @@ with a leading run axis: every cut contraction and fused round is one
 batched kernel launch for all R runs (`kernels.cut_ad`'s vmap rules).
 A stream is shared by the runs: each run draws its batch at its own
 `t_hat` mirror, outside the transform.
+
+All three take `mesh=`, a `launch.mesh.WorkerMesh`: every shard (a
+process) calls the engine with the same global arguments, runs its block
+of the workers through `core.sharded` (the step, refresh and gap split
+into local pieces and sums over the mesh; a sweep vmaps the local
+pieces), and returns the global state gathered from every shard.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from repro_torch.core import afto as afto_lib
+from repro_torch.core import sharded as sharded_lib
 from repro_torch.core import stationarity as stat_lib
 from repro_torch.core.scheduler import Schedule
 from repro_torch.core.types import AFTOState, Hyper, TrilevelProblem
@@ -160,7 +167,7 @@ def run_scanned(problem: TrilevelProblem, hyper: Hyper, schedule: Schedule,
                 metrics_fn: Optional[Callable] = None,
                 metrics_every: int = 10,
                 state: Optional[AFTOState] = None,
-                data=None) -> RunResult:
+                data=None, mesh=None) -> RunResult:
     """Run the AFTO trajectory over `schedule`.
 
     The history holds numpy arrays keyed by t / sim_time / host_time /
@@ -171,7 +178,15 @@ def run_scanned(problem: TrilevelProblem, hyper: Hyper, schedule: Schedule,
     stream on each worker's absolute consumption time.
 
     data: replacement `problem.data` arrays, or a `Stream` whose batches
-    are drawn each iteration at the workers' pre-step `t_hat`."""
+    are drawn each iteration at the workers' pre-step `t_hat`.
+
+    mesh: a `launch.mesh.WorkerMesh` with a "worker" axis; every shard
+    calls this with the same global arguments and runs its own block of
+    the workers (`_run_sharded`), and every shard returns the same
+    global result.  `hyper.n_workers` must divide over the mesh."""
+    if mesh is not None:
+        return _run_sharded(problem, hyper, schedule, metrics_fn,
+                            metrics_every, state, data, mesh)
     n_iterations = schedule.n_iterations
     problem, stream = bind_data(problem, hyper, data)
     if state is None:
@@ -207,12 +222,112 @@ def run_scanned(problem: TrilevelProblem, hyper: Hyper, schedule: Schedule,
                    .cpu().numpy() for k in rows[0]}
     elapsed = time.perf_counter() - t_start
 
+    return RunResult(state=state, history=_finish_history(
+        history, schedule, record_its, elapsed))
+
+
+def _finish_history(history, schedule, record_its, elapsed) -> Dict:
+    n_iterations = schedule.n_iterations
     history["t"] = (record_its + 1).astype(np.float64)
     history["sim_time"] = np.asarray(schedule.sim_time)[record_its]
     history["max_staleness"] = np.asarray(
         schedule.max_staleness)[record_its].astype(np.float64)
     history["host_time"] = elapsed * (record_its + 1) / n_iterations
-    return RunResult(state=state, history=history)
+    return history
+
+
+# ---------------------------------------------------------------------------
+# worker-mesh sharded runs: one process per shard
+# ---------------------------------------------------------------------------
+
+_ENGINE_KEYS = ("gap_sq", "n_cuts_i", "n_cuts_ii")
+
+
+def _check_mesh(mesh, hyper: Hyper) -> int:
+    """The mesh's width, after checking its axis, its divisibility of the
+    workers and that this process is one of its shards."""
+    shape = dict(mesh.shape)
+    if sharded_lib.WORKER_AXIS not in shape:
+        raise ValueError(
+            f"mesh must carry a {sharded_lib.WORKER_AXIS!r} axis; got axes "
+            f"{tuple(shape)} (see repro_torch.launch.mesh.make_worker_mesh)")
+    w = shape[sharded_lib.WORKER_AXIS]
+    if hyper.n_workers % w != 0:
+        raise ValueError(f"n_workers={hyper.n_workers} must divide over the "
+                         f"{w}-shard worker mesh")
+    if not mesh.member:
+        raise ValueError("this process is not a shard of the mesh")
+    return w
+
+
+def _shared_history(history: Dict, mesh) -> Dict:
+    """The engine's keys are the same on every shard; a `metrics_fn` key,
+    computed on the shard-local state, is shard 0's on every shard."""
+    extra = {k: v for k, v in history.items() if k not in _ENGINE_KEYS}
+    if extra:
+        history.update(mesh.broadcast_object(extra))
+    return history
+
+
+def _run_sharded(problem, hyper, schedule, metrics_fn, metrics_every,
+                 state, data, mesh) -> RunResult:
+    """`run_scanned` on a worker mesh: this shard's block of the state,
+    data rows and mask columns through `core.sharded`, every other
+    shard doing the same, then the global state gathered from all.
+
+    A stream draws only this shard's global worker rows (at offset
+    rank * n_local), so streaming adds no traffic; `metrics_fn` sees the
+    shard-local state (shard 0's values are recorded, as the reference
+    records the replicated-out buffer)."""
+    from repro_torch.fed import sharding as shd
+
+    n_shards = _check_mesh(mesh, hyper)
+    n_iterations = schedule.n_iterations
+    problem, stream = bind_data(problem, hyper, data)
+    if state is None:
+        state = afto_lib.init_state(problem, hyper)
+    device = state.lam.device
+    spec_i, spec_ii = state.cuts_i.spec, state.cuts_ii.spec
+    w = mesh.rank
+    n_loc = hyper.n_workers // n_shards
+    off = w * n_loc
+    local_prob = shd.shard_problem(problem, w, n_shards)
+    record_its, slots = record_slots(n_iterations, metrics_every)
+    active = np.asarray(schedule.active)[:, off:off + n_loc]
+    masks = torch.as_tensor(active, dtype=torch.float32, device=device)
+    rows = []
+
+    t_start = time.perf_counter()
+    with torch.no_grad():
+        local = shd.shard_state(state, w, n_shards)
+        del state
+        t_abs = int(local.t)
+        t_hat = None if stream is None else \
+            local.stale.t_hat.cpu().numpy().astype(np.int64)
+        loc = sharded_lib.Local(local_prob, hyper, mesh)
+        for it in range(n_iterations):
+            if stream is not None:
+                loc = None      # let the last batch go before the next
+                loc = sharded_lib.Local(dataclasses.replace(
+                    local_prob, data=stream_lib.next_batch(
+                        stream, t_hat, worker_offset=off, n_local=n_loc,
+                        device=device)), hyper, mesh)
+                t_hat = advance_t_hat(t_hat, active[it], t_abs + 1)
+            local, aux = sharded_lib.afto_step_sharded(loc, local,
+                                                       masks[it])
+            t_abs += 1
+            refreshed = refresh_due(hyper, t_abs)
+            if refreshed:
+                local = sharded_lib.refresh_sharded(loc, local)
+            if slots[it] >= 0:
+                rows.append(sharded_lib.record_sharded(
+                    loc, local, metrics_fn, aux=None if refreshed else aux))
+        history = {k: torch.stack([r[k].float() for r in rows])
+                   .cpu().numpy() for k in rows[0]}
+        state = shd.gather_state(local, mesh, spec_i, spec_ii)
+    elapsed = time.perf_counter() - t_start
+    return RunResult(state=state, history=_finish_history(
+        _shared_history(history, mesh), schedule, record_its, elapsed))
 
 
 def _stitch_histories(parts, offsets, elapsed_offsets) -> Dict:
@@ -239,7 +354,7 @@ def run_chunked(problem: TrilevelProblem, hyper: Hyper, schedule: Schedule,
                 metrics_fn: Optional[Callable] = None,
                 metrics_every: int = 10,
                 state: Optional[AFTOState] = None,
-                data=None) -> RunResult:
+                data=None, mesh=None) -> RunResult:
     """`run_scanned` split into state-continued calls of `chunk_size`
     iterations, with `chunk_hook(state, t_abs)` called on the live state
     at every chunk boundary, the final one included (`t_abs` counts the
@@ -252,7 +367,10 @@ def run_chunked(problem: TrilevelProblem, hyper: Hyper, schedule: Schedule,
     batches key on the state's absolute counters.
 
     The history records per chunk (every `metrics_every`-th iteration of
-    the chunk and its last), stitched to absolute iterations."""
+    the chunk and its last), stitched to absolute iterations.  On a
+    worker `mesh` each chunk is a sharded `run_scanned`, and the hook
+    sees the global state assembled from every shard (it must return the
+    same replacement on every shard)."""
     n_iterations = schedule.n_iterations
     chunk_size = max(1, int(chunk_size))
     parts, offsets, elapsed = [], [], []
@@ -262,7 +380,7 @@ def run_chunked(problem: TrilevelProblem, hyper: Hyper, schedule: Schedule,
         res = run_scanned(problem, hyper, schedule.slice(a, b),
                           metrics_fn=metrics_fn,
                           metrics_every=metrics_every, state=state,
-                          data=data)
+                          data=data, mesh=mesh)
         state = res.state
         parts.append(res.history)
         offsets.append(a)
@@ -340,7 +458,8 @@ def run_swept(problem: TrilevelProblem, hyper: Hyper,
               metrics_every: int = 10,
               states: Optional[AFTOState] = None,
               data=None,
-              sweep_hypers: Optional[Mapping] = None) -> SweepResult:
+              sweep_hypers: Optional[Mapping] = None,
+              mesh=None) -> SweepResult:
     """Run R = len(schedules) whole trajectories at once.
 
     Each iteration runs `torch.func.vmap` of `run_scanned`'s step (and
@@ -368,6 +487,12 @@ def run_swept(problem: TrilevelProblem, hyper: Hyper,
                    every run on any iteration one run is due and each
                    run keeps its own branch (`torch.where`), as the
                    reference's vmapped `lax.cond` lowers to a select.
+
+      mesh         a worker mesh as in `run_scanned`: each shard runs
+                   its block of every run's workers, the local pieces
+                   of each stage vmapped over the runs and the sums over
+                   the mesh acting on the stacked (R, ...) aggregates
+                   between stages (`core.sharded.Local`).
 
     History layout: per-run keys (gap_sq, n_cuts_*, sim_time,
     max_staleness, host_time, metrics_fn keys) are (R, n_records)
@@ -434,6 +559,36 @@ def run_swept(problem: TrilevelProblem, hyper: Hyper,
 
     record_its, slots = record_slots(n_iterations, metrics_every)
     active = np.stack([np.asarray(s.active) for s in schedules], 1)
+    off, n_loc = 0, None
+    if mesh is not None:
+        from repro_torch.fed import sharding as shd
+
+        n_shards = _check_mesh(mesh, hyper)
+        n_loc = hyper.n_workers // n_shards
+        off = mesh.rank * n_loc
+        active = active[..., off:off + n_loc]
+        spec_i, spec_ii = state.cuts_i.spec, state.cuts_ii.spec
+        state = torch.func.vmap(
+            lambda st: shd.shard_state(st, mesh.rank, n_shards))(state)
+        if t_hat is not None:
+            t_hat = t_hat[:, off:off + n_loc]
+        if data is not None:
+            data = shd.shard_data(data, mesh.rank, n_shards, dim=1)
+        local_prob = shd.shard_problem(problem, mesh.rank, n_shards)
+
+        def local(run_data):
+            return sharded_lib.Local(local_prob, hyper, mesh, batched=True,
+                                     values=values, data=run_data)
+
+        def step(run_data, st, mask, rest_dims=()):
+            return sharded_lib.afto_step_sharded(local(run_data), st, mask)
+
+        def refresh(run_data, st):
+            return sharded_lib.refresh_sharded(local(run_data), st)
+
+        def rec(run_data, st, aux, rest_dims=()):
+            return sharded_lib.record_sharded(local(run_data), st,
+                                              metrics_fn, aux)
     masks = torch.as_tensor(active, dtype=torch.float32, device=device)
     rows = []
     t_start = time.perf_counter()
@@ -443,7 +598,9 @@ def run_swept(problem: TrilevelProblem, hyper: Hyper,
                 # drawn outside vmap, which refuses random ops; the last
                 # batch goes first
                 data = None
-                data = stream_lib.next_batch(stream, t_hat, device=device)
+                data = stream_lib.next_batch(stream, t_hat,
+                                             worker_offset=off,
+                                             n_local=n_loc, device=device)
                 t_hat = advance_t_hat(t_hat, active[it], t_abs + 1)
             state, aux = step(data, state, masks[it], rest_dims=(0,))
             t_abs += 1
@@ -465,6 +622,9 @@ def run_swept(problem: TrilevelProblem, hyper: Hyper,
                             rec(data, state, aux, rest_dims=(0,)))
         history = {k: torch.stack([r[k].float() for r in rows], 1)
                    .cpu().numpy() for k in rows[0]}
+        if mesh is not None:
+            state = shd.gather_state(state, mesh, spec_i, spec_ii, lead=1)
+            history = _shared_history(history, mesh)
     elapsed = time.perf_counter() - t_start
 
     history["t"] = (record_its + 1).astype(np.float64)

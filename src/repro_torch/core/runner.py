@@ -24,8 +24,10 @@ canonical entry; this port carries four engines:
 
 Every engine takes `data=`: replacement `problem.data` arrays, or a
 `repro_torch.data.stream.Stream` whose worker batches are drawn each
-iteration at the workers' consumption times.  Worker meshes are a later
-slice of the port and raise `NotImplementedError`.
+iteration at the workers' consumption times.  "scan" (chunked or not)
+and "sweep" take `mesh=`, a `repro_torch.launch.mesh.WorkerMesh`: every
+shard process calls `run` with the same spec and runs its block of the
+workers (`core.sharded`); "eager" and "async" refuse a mesh.
 """
 from __future__ import annotations
 
@@ -47,8 +49,6 @@ from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves
 
 ENGINES = ("scan", "sweep", "eager", "async")
-# what is not ported yet, and its item in ROADMAP.md Queue 1
-_LATER_FIELDS = {"mesh": "the worker-mesh sharded engine (item 6)"}
 _SWEEP_ONLY = ("schedules", "seeds", "sweep_states", "sweep_hypers")
 
 
@@ -89,7 +89,10 @@ class RunSpec:
       transport         engine="async": a `repro_torch.fed.runtime`
                         transport (default: an in-process queue
                         transport with one worker thread per worker).
-      mesh              a later slice of the port; must stay None.
+      mesh              a `repro_torch.launch.mesh.WorkerMesh` with a
+                        "worker" axis (engine="scan" or "sweep"): the
+                        sharded engine, called by every shard with the
+                        same spec; the mesh's device is the run's.
     """
     problem: TrilevelProblem
     hyper: Hyper
@@ -130,11 +133,8 @@ def run(spec: RunSpec):
     if spec.engine not in ENGINES:
         raise ValueError(f"unknown engine {spec.engine!r}; expected one "
                          f"of {ENGINES}")
-    for name, what in _LATER_FIELDS.items():
-        if getattr(spec, name) is not None:
-            raise NotImplementedError(
-                f"RunSpec.{name}: {what} is not ported yet (ROADMAP.md "
-                "Queue 1)")
+    if spec.mesh is not None and spec.engine not in ("scan", "sweep"):
+        raise ValueError("mesh= requires engine='scan' or 'sweep'")
     if spec.chunk_hook is not None and spec.chunk_size is None:
         raise ValueError("chunk_hook requires chunk_size")
     if spec.chunk_size is not None and spec.engine != "scan":
@@ -150,6 +150,9 @@ def run(spec: RunSpec):
         if leaf.device.type != device.type:
             raise ValueError(f"the problem lives on {leaf.device}, the run "
                              f"on {device}")
+    if spec.mesh is not None and spec.mesh.device.type != device.type:
+        raise ValueError(f"the mesh's shards live on {spec.mesh.device}, "
+                         f"the run on {device}")
 
     if spec.engine == "async":
         from repro_torch.fed import runtime as runtime_lib
@@ -170,11 +173,11 @@ def run(spec: RunSpec):
                 spec.problem, spec.hyper, schedule, spec.chunk_size,
                 chunk_hook=spec.chunk_hook, metrics_fn=spec.metrics_fn,
                 metrics_every=spec.metrics_every, state=spec.state,
-                data=spec.data)
+                data=spec.data, mesh=spec.mesh)
         return engine_lib.run_scanned(
             spec.problem, spec.hyper, schedule, metrics_fn=spec.metrics_fn,
             metrics_every=spec.metrics_every, state=spec.state,
-            data=spec.data)
+            data=spec.data, mesh=spec.mesh)
     return _run_eager(spec)
 
 
@@ -199,7 +202,7 @@ def _run_sweep(spec: RunSpec) -> SweepResult:
     return engine_lib.run_swept(
         spec.problem, spec.hyper, schedules, metrics_fn=spec.metrics_fn,
         metrics_every=spec.metrics_every, states=spec.sweep_states,
-        data=spec.data, sweep_hypers=spec.sweep_hypers)
+        data=spec.data, sweep_hypers=spec.sweep_hypers, mesh=spec.mesh)
 
 
 def _run_eager(spec: RunSpec) -> RunResult:

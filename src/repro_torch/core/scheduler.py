@@ -65,6 +65,21 @@ class Schedule:
             s_eff=cut(self.s_eff), tau_eff=cut(self.tau_eff),
             width=cut(self.width))
 
+    def worker_shards(self, n_shards: int) -> np.ndarray:
+        """The arrival masks grouped by worker-mesh shard, (n_shards, T,
+        N / n_shards): row w holds the contiguous column block that shard
+        w of the sharded engine takes (`sim_time` / `max_staleness` are
+        the master's and stay global).  Raises if the worker axis does
+        not partition."""
+        n = self.n_workers
+        if n % n_shards != 0:
+            raise ValueError(
+                f"{n} workers do not partition over {n_shards} shards")
+        t = self.n_iterations
+        return np.ascontiguousarray(
+            self.active.reshape(t, n_shards, n // n_shards)
+            .transpose(1, 0, 2))
+
 
 def _stack_rows(rows, n: int, dtype) -> np.ndarray:
     return np.stack(rows) if rows else np.zeros((0, n), dtype)

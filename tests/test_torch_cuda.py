@@ -614,3 +614,56 @@ def test_sweep_launches_only_batched_kernels(cuda):
                                        one.history["gap_sq"], rtol=1e-4)
             assert list(swept.run(k).history["n_cuts_ii"]) == \
                 list(one.history["n_cuts_ii"])
+
+
+# ---------------------------------------------------------------------------
+# the worker mesh on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend,width", [("nccl", 1), ("gloo", 2)])
+def test_worker_mesh_on_the_card(cuda, backend, width):
+    """The sharded scan of the quadratic on a 1-rank NCCL mesh and on 2
+    gloo ranks sharing the card, held to the unsharded plain-route scan on
+    the card at the reference's sharded tolerances (states rtol 5e-5 /
+    atol 1e-6, gap_sq rtol 5e-4, cut counts exact): the ranks agree bit
+    for bit, all-reduce `traffic_record`'s bytes and launch no kernel."""
+    import pathlib
+
+    import torch.utils._pytree as pytree
+    import torch_mesh_ranks as ranks
+    from repro_torch.core import StragglerScheduler, run_scanned, sharded
+    from repro_torch.launch.mesh import spawn_mesh
+
+    rng = np.random.default_rng(0)
+    data = {"A": (rng.normal(size=(4, 3, 3)) * 0.3).astype(np.float32),
+            "b": rng.normal(size=(4, 3)).astype(np.float32)}
+    cfg = StragglerConfig(n_workers=4, s_active=3, tau=5, n_stragglers=1,
+                          straggler_slowdown=5.0, seed=0)
+    sched = StragglerScheduler(cfg).precompute(40)
+    arrays = {"active": sched.active, "sim_time": sched.sim_time,
+              "max_staleness": sched.max_staleness}
+    out = spawn_mesh("torch_mesh_ranks:card_case", width, backend=backend,
+                     device="cuda", args=(data, arrays),
+                     pythonpath=[str(pathlib.Path(__file__).parent)],
+                     timeout=300)
+    want = run_scanned(ranks.quad_problem(data, device=cuda),
+                       dataclasses.replace(ranks.hyper(), cut_impl="ref"),
+                       sched, metrics_every=5)
+    _leaves = pytree.tree_leaves
+    got = out[0]
+    assert got["device"].startswith("cuda")
+    for x, y in zip(_leaves(got["state"]), _leaves(want.state)):
+        np.testing.assert_allclose(x.numpy(), y.cpu().numpy(), rtol=5e-5,
+                                   atol=1e-6)
+    np.testing.assert_allclose(got["history"]["gap_sq"],
+                               want.history["gap_sq"], rtol=5e-4, atol=1e-6)
+    for k in ("n_cuts_i", "n_cuts_ii", "t"):
+        np.testing.assert_array_equal(got["history"][k], want.history[k])
+    rec = sharded.traffic_record(want.state.cuts_ii.spec, ranks.hyper())
+    for r in out:
+        assert all(torch.equal(x, y) for x, y in zip(_leaves(r["state"]),
+                                                     _leaves(got["state"])))
+        assert r["traffic"]["step"] == 40 * rec["step_bytes"]
+        assert r["traffic"]["refresh"] == 8 * rec["refresh_bytes"]
+        assert r["traffic"]["gap"] == 8 * rec["gap_bytes"]
+        assert sum(r["launches"].values()) == 0

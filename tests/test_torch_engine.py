@@ -151,7 +151,7 @@ def test_entry_points_need_cuda_unless_told_cpu():
 @pytest.mark.parametrize("change,exc", [
     (dict(transport=object()), ValueError),
     (dict(engine="warp"), ValueError),
-    (dict(mesh=object()), NotImplementedError),
+    (dict(mesh=object(), engine="eager"), ValueError),
     (dict(chunk_hook=lambda state, t: None), ValueError),
     (dict(chunk_size=5, engine="sweep"), ValueError),
 ])

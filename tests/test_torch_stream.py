@@ -47,6 +47,7 @@ from repro_torch.core import (RunSpec, Schedule, StragglerConfig,
 from repro_torch.data import ShardedLoader
 from repro_torch.data import stream as stream_lib
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import WorkerMesh
 from test_torch_core import assert_states_close, port_hyper, quad_problems
 
 try:
@@ -482,5 +483,7 @@ def test_sharded_loader_matches_reference():
                     assert g[k].device.type == "cpu"
                     np.testing.assert_array_equal(g[k].numpy(),
                                                   np.asarray(w[k]))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ShardedLoader(arrays, 5, mesh=object(), device="cpu")
+    # a worker mesh's batch must split over its shards
+    mesh = WorkerMesh(group=None, rank=0, size=2, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="split"):
+        ShardedLoader(arrays, 5, mesh=mesh)
