@@ -53,10 +53,16 @@ file; exits non-zero, printing no result, without them.  Phases:
    Hkv 8, hd 128; windows 0 and 1024) and two ragged shapes, in bf16
    through the tensor-core kernel (plus Whisper's heads, hd 64, S = T =
    1500) and in f32 through the SIMT kernel, each launch checked against
-   `flash_route`; the mLSTM chunk kernels at xLSTM-125M's chunk (B 4, H
-   4, L 256, hd 192) and at L = 100, with a carried state, in bf16
-   through the tensor-core kernel and in f32 through the SIMT kernel,
-   each launch checked against `mlstm_route`; bitwise repeats, device
+   `flash_route`; bf16 at Gemma 3 12B's head dim 256 (H 16, Hkv 8)
+   through the hd-256 tensor-core kernel at (B 4, S = T = 1024), Llama's
+   flops, at Gemma's serving shapes (B 2, S = T = 2048, windows 0 and
+   1024) and at a ragged 1000, every one timed beside its bound, the
+   plain version, `scaled_dot_product_attention` (a window as an explicit
+   mask) and the SIMT kernel on the same inputs, which it must beat ten
+   times over at the first; the mLSTM chunk kernels at xLSTM-125M's
+   chunk (B 4, H 4, L 256, hd 192) and at L = 100, with a carried state,
+   in bf16 through the tensor-core kernel and in f32 through the SIMT
+   kernel, each launch checked against `mlstm_route`; bitwise repeats, device
    times beside the bound, the plain version and (flash only)
    `scaled_dot_product_attention`, a yardstick the port never calls, and
    the SIMT kernels' times on the same bf16 inputs (the tensor-core mLSTM
@@ -193,6 +199,16 @@ file; exits non-zero, printing no result, without them.  Phases:
    cuts with plain products; the kernel line's `launches_phase14`); 30
    white-wine iterations on 2 ranks with every all-reduce timed, the
    device synchronised first.
+15. Gemma 3 12B serving at full width and depth (bf16, 48 layers, five
+   local ones of window 1024 before each global one, head dim 256;
+   random weights from seed 0, about 22 GiB), run right after phase 8:
+   `serve(batch=2, prompt_len=2048, gen=32)`, so the window binds in 40
+   layers and the decode rings wrap from the first step; the same checks
+   as phase 8, the bf16 prefill holding the hd-256 kernel to exactly 48
+   launches, the f32 evaluation of the bf16 weights taken one block at a
+   time, and the f32 copy cut to one period (six layers) on the SIMT
+   kernel, 6 launches; one prefill profiled, with the hd-256 kernel's
+   share of the busy time.
 
 Each phase ends with a `[clock]` line (its seconds and the script's),
 also on standard error; past WATCHDOG_S seconds every thread's stack
@@ -237,6 +253,8 @@ SOURCES = {"matvec": "src/repro_torch/kernels/csrc/cut_kernels.cu",
            "fused_round": "src/repro_torch/kernels/csrc/inner_round.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+           "flash_attention_hd256":
+               "src/repro_torch/kernels/csrc/flash_attention_sm90_hd256.cu",
            "flash_attention_simt":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "mlstm_chunk": "src/repro_torch/kernels/csrc/mlstm_chunk_sm90.cu",
@@ -246,6 +264,8 @@ REPLACES = {"matvec": "src/repro/kernels/cut_eval.py:60",
             "rank1": "src/repro/kernels/cut_eval.py:129",
             "fused_round": "src/repro/kernels/inner_round.py:53",
             "flash_attention": "src/repro/kernels/flash_attention.py:26",
+            "flash_attention_hd256":
+                "src/repro/kernels/flash_attention.py:26",
             "flash_attention_simt":
                 "src/repro/kernels/flash_attention.py:26",
             "mlstm_chunk": "src/repro/kernels/mlstm_chunk.py:25",
@@ -1029,9 +1049,10 @@ def profile_phase(label, spec):
                  lambda: run(spec))
 
 
-def profile_call(label, fn):
+def profile_call(label, fn, focus=None):
     """Device time of one call of `fn` by kernel, and the device's busy
-    share of the wall time, under torch.profiler."""
+    share of the wall time, under torch.profiler; with `focus`, also the
+    time and share of busy of the kernels whose name holds it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1059,6 +1080,11 @@ def profile_call(label, fn):
           f"({100 * busy_us / wall_us:.1f}%), {n_kernels} kernels, the "
           f"port's kernels {ours / 1e3:.3f} ms ({100 * ours / busy_us:.1f}%"
           " of busy)")
+    if focus is not None:
+        hits = [v for name, v in by_name.items() if focus in name]
+        n_f, us_f = sum(n for n, _ in hits), sum(us for _, us in hits)
+        print(f"  {focus}: {us_f / 1e3:.3f} ms in {n_f} launches "
+              f"({100 * us_f / busy_us:.1f}% of busy)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     for name, (n, us) in top:
         print(f"  {us / 1e3:8.3f} ms  {n:6d}x  {name[:90]}")
@@ -1071,6 +1097,15 @@ def profile_call(label, fn):
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 on the tensor cores
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 4e-2}   # tests/test_kernels.py:230
 MLSTM_TOL = {"float32": 6e-3, "bfloat16": 6e-2}   # tests/test_kernels.py:285
+# every flash row beside FLASH_TOL: the largest over query rows of max
+# |diff| / max |plain| across the head dim (`row_rel_err`).  FLASH_TOL is
+# about the size of a late row's outputs at 2,048 keys (0.03-0.05), so it
+# cannot see a fault in the rows where the window and the tile skipping
+# act; this one is scaled to each row.  Each limit lies between the
+# kernels' readings on the H100 (f32 at most 4.5e-6; bf16 7.8e-3, one
+# bf16 ulp of a row's largest entry) and those of the planted faults of
+# `fault_masks` (0.20 at least), which every row also checks
+FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # (B, S, T, H, Hkv, hd, window): Llama-3 8B's prefill first
 FLASH_SHAPES = ((4, 1024, 1024, 32, 8, 128, 0),
                 (4, 1024, 1024, 32, 8, 128, 1024),
@@ -1079,6 +1114,19 @@ FLASH_SHAPES = ((4, 1024, 1024, 32, 8, 128, 0),
 # bf16 only: Whisper's heads and head dim (20 x 64) at 1,500 frames, run
 # causal like the others: the tensor-core kernel's hd-64 instance
 FLASH_HD64_SHAPE = (1, 1500, 1500, 20, 20, 64, 0)
+# bf16 only, on the hd-256 tensor-core kernel, every row timed: Gemma 3
+# 12B's heads (16, 8 kv) at Llama's prefill flops (H hd = 4,096 either
+# way), Gemma's serving shapes (batch 2, 2,048 tokens; global and
+# windowed layers) and a ragged length
+FLASH_HD256_SHAPES = ((4, 1024, 1024, 16, 8, 256, 0),
+                      (2, 2048, 2048, 16, 8, 256, 0),
+                      (2, 2048, 2048, 16, 8, 256, 1024),
+                      (2, 1000, 1000, 16, 8, 256, 0))
+# the row the kernel line carries: the windowed serving shape, 40 of a
+# Gemma prefill's 48 launches; the hd-256 kernel must be at least this
+# many times faster than the SIMT kernel at the first row
+FLASH_HD256_MAIN = FLASH_HD256_SHAPES[2]
+HD256_OVER_SIMT = 10.0
 # (B, H, L, hd): xLSTM-125M's chunk first
 MLSTM_SHAPES = ((4, 4, 256, 192), (4, 4, 100, 192))
 
@@ -1095,6 +1143,32 @@ def causal_pairs(s, t, window):
     hi = np.minimum(q, t - 1)
     lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
     return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def row_rel_err(got, want) -> float:
+    """max over query rows of max |got - want| / max |want| across the
+    last (head) dim."""
+    got, want = got.float(), want.float()
+    scale = want.abs().amax(-1).clamp_min(1e-30)
+    return float(((got - want).abs().amax(-1) / scale).max())
+
+
+def fault_masks(s, t, window, device):
+    """Key masks of the plain version with one planted fault each:
+    "edge", the window off by one (every row's oldest key dropped) or,
+    without a window, key 0 dropped from the rows from S/2 on; "tile",
+    the 64 keys before S/2 dropped from the rows from S/2 on."""
+    import torch
+    q = torch.arange(s, device=device)[:, None]
+    k = torch.arange(t, device=device)[None]
+    sound = k <= q
+    if window:
+        sound = sound & (k > q - window)
+    late = q >= s // 2
+    edge = (sound & (k > q - window + 1) if window
+            else sound & ~(late & (k == 0)))
+    tile = sound & ~(late & (k >= max(0, s // 2 - 64)) & (k < s // 2))
+    return {"edge": edge[None, None], "tile": tile[None, None]}
 
 
 def flash_operands(shape, dtype, seed):
@@ -1162,9 +1236,9 @@ def mlstm_work(shape, dtype, split=False):
     return nbytes, typed / flop_rate(dtype) + f32 / F32_FLOP_PER_S
 
 
-def simt_flash(lib, o):
+def simt_flash(lib, o, window=0):
     """The SIMT flash kernel called directly (uncounted) on o's causal
-    inputs: the route bf16 took before the tensor-core kernel."""
+    inputs: the route bf16 took before the tensor-core kernels."""
     import math
     import torch
     q, k, v = o["q"], o["k"], o["v"]
@@ -1173,7 +1247,8 @@ def simt_flash(lib, o):
     err = lib.flash_attention_simt(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         int(q.dtype == torch.bfloat16), b, s, k.shape[1], h, k.shape[2], hd,
-        1, 0, 1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+        1, window, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream().cuda_stream)
     check(err == 0, f"flash_attention_simt: launch failed with error {err}")
     return out
 
@@ -1203,14 +1278,17 @@ def llm_kernel_phase(rows):
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import mlstm_chunk as mk
     from repro_torch.kernels import ref
+    from repro_torch.models.attention import attend, causal_window_mask
 
     lib = build.load()
     print("flash   dtype    kernel               B    S    T  H Hkv  hd "
-          "window  max_abs_err  ms  plain_ms  sdpa_ms  bound_ms")
+          "window  max_abs_err  row_rel_err (faults edge/tile)  ms  plain_ms"
+          "  sdpa_ms  bound_ms")
+    hd256 = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         tol = FLASH_TOL[dname]
-        shapes = FLASH_SHAPES + ((FLASH_HD64_SHAPE,)
+        shapes = FLASH_SHAPES + ((FLASH_HD64_SHAPE,) + FLASH_HD256_SHAPES
                                  if dtype == torch.bfloat16 else ())
         for i, shape in enumerate(shapes):
             window = shape[-1]
@@ -1230,24 +1308,44 @@ def llm_kernel_phase(rows):
             check(dict(K.LAUNCHES) == {name: 1},
                   f"flash_attention {dname} {shape} launched "
                   f"{dict(K.LAUNCHES)}, expected {{{name!r}: 1}}")
+            want = plain(o)
             try:
-                err = close(got, plain(o), tol, tol)
+                err = close(got, want, tol, tol)
             except AssertionError as e:
                 fail(f"{name} {dname} {shape} vs plain: {e}")
+            row_err, row_tol = row_rel_err(got, want), FLASH_ROW_TOL[dname]
+            faults = {f: row_rel_err(attend(o["q"], o["k"], o["v"], m), want)
+                      for f, m in fault_masks(shape[1], shape[2], window,
+                                              "cuda").items()}
+            check(row_err <= row_tol,
+                  f"{name} {dname} {shape}: row_rel_err {row_err:.3e} vs "
+                  f"plain beyond {row_tol}")
+            check(min(faults.values()) > row_tol,
+                  f"{name} {dname} {shape}: a planted fault reads "
+                  f"{faults}, within the row_rel_err limit {row_tol}")
             check(torch.equal(got, kern(o)),
                   f"{name} {dname} {shape} not bitwise repeatable")
             line = (f"flash   {dname:8s} {name:20s} "
-                    + " ".join(str(x) for x in shape) + f"  {err:.3e}")
-            if i == 0:
+                    + " ".join(str(x) for x in shape) + f"  {err:.3e}  "
+                    f"{row_err:.3e} ({faults['edge']:.3e}/"
+                    f"{faults['tile']:.3e})")
+            if i == 0 or shape in FLASH_HD256_SHAPES:
                 nbytes, t_ops = flash_work(shape, dtype)
                 copies = [flash_operands(shape, dtype, seed=500 + k)
                           for k in range(max(2, -(-2 * L2_BYTES // nbytes)))]
+                # the same function in one library call: a window as an
+                # explicit mask
+                mask = None
+                if window:
+                    mask = causal_window_mask(
+                        torch.arange(shape[1], device="cuda"),
+                        torch.arange(shape[2], device="cuda"), window)
 
-                def sdpa(o):
+                def sdpa(o, mask=mask):
                     return F.scaled_dot_product_attention(
                         o["q"].transpose(1, 2), o["k"].transpose(1, 2),
-                        o["v"].transpose(1, 2), is_causal=True,
-                        enable_gqa=True)
+                        o["v"].transpose(1, 2), attn_mask=mask,
+                        is_causal=mask is None, enable_gqa=True)
 
                 lib_err = float((sdpa(o).transpose(1, 2).float()
                                  - plain(o).float()).abs().max())
@@ -1258,18 +1356,37 @@ def llm_kernel_phase(rows):
                 line += (f"  {ms:.4f}  {plain_ms:.4f}  {lib_ms:.4f}  "
                          f"{bound:.4f} ({bound_by}; sdpa vs plain "
                          f"{lib_err:.2e})")
-                rows[name] = {
+                rec = {
                     "name": name, "route": "cuda", "source": SOURCES[name],
                     "replaces": REPLACES[name], "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": bound_by, "library_ms": lib_ms}
+                    "row_rel_err": row_err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "library_ms": lib_ms}
                 if name != "flash_attention_simt":
                     simt_ms = median_ms(
-                        lambda o: simt_flash(lib, o), copies, n_launch=4,
-                        reps=5)
+                        lambda o: simt_flash(lib, o, window), copies,
+                        n_launch=4, reps=5)
                     line += (f"; the SIMT kernel on the same inputs "
                              f"{simt_ms:.4f} ms")
+                if name == "flash_attention_hd256":
+                    hd256.append(dict(rec, shape=list(shape),
+                                      simt_ms=simt_ms))
+                    if shape == FLASH_HD256_SHAPES[0]:
+                        check(HD256_OVER_SIMT * ms <= simt_ms,
+                              f"{name} {shape}: {ms:.4f} ms, not "
+                              f"{HD256_OVER_SIMT}x faster than the SIMT "
+                              f"kernel's {simt_ms:.4f} ms")
+                else:
+                    rows[name] = rec
             print(line + "  (bitwise repeatable: yes)", flush=True)
+    # the kernel line's hd-256 row: the windowed serving shape, with every
+    # timed shape beside it
+    main = next(r for r in hd256 if tuple(r["shape"]) == FLASH_HD256_MAIN)
+    rows["flash_attention_hd256"] = dict(main, shapes=[
+        {k: r[k] for k in ("shape", "max_abs_err", "row_rel_err", "ms",
+                           "plain_ms", "bound_ms", "bound_by", "library_ms",
+                           "simt_ms")}
+        for r in hd256])
 
     print("mlstm   dtype    kernel            B  H    L   hd  "
           "max_abs_err(y/c/n/m)  ms  plain_ms  bound_ms")
@@ -1343,9 +1460,13 @@ def llm_kernel_phase(rows):
 # ---------------------------------------------------------------------------
 
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
+# Gemma 3 12B (phase 15): prompts past its 1,024-token window, so the
+# window binds in 40 of 48 layers and the decode rings wrap at once
+GEMMA_BATCH, GEMMA_PROMPT = 2, 2048
 # prefill in f32, kernel route vs plain route, max |diff| / max |entry|:
-# the kernels' own f32 tolerances (Llama's logits; xLSTM block by block)
-ROUTE_TOL = {"llama3-8b": 2e-3, "xlstm-125m": 6e-3}
+# the kernels' own f32 tolerances (Llama's and Gemma's logits; xLSTM
+# block by block)
+ROUTE_TOL = {"llama3-8b": 2e-3, "gemma3-12b": 2e-3, "xlstm-125m": 6e-3}
 # bf16 at full depth: each route's logits against an f32 evaluation of
 # the same weights (plain route); the kernel route may be at most this
 # many times farther from it than the plain route, plus BF16_FLOOR
@@ -1354,7 +1475,7 @@ DISTANCE_FACTOR, BF16_FLOOR = 2.0, 1e-3
 # margin: Llama-3 8B measured 1.712e-2 on the H100; xLSTM-125M's routes
 # differ by as much as bf16 differs from f32 (0.95 vs 0.94), so only the
 # f32-distance gate holds it
-BF16_ROUTE_TOL = {"llama3-8b": 5e-2, "xlstm-125m": None}
+BF16_ROUTE_TOL = {"llama3-8b": 5e-2, "gemma3-12b": 5e-2, "xlstm-125m": None}
 
 
 def rel_diff(a, b):
@@ -1381,23 +1502,55 @@ def prefill_logits(cfg, params, prompts, impl=None):
     return logits, launches
 
 
-def bf16_route_check(cfg, params, prompts, tol):
-    """Kernel and plain routes in bf16 against each other and against an
-    f32 evaluation of the same weights; gates: the kernel route no
-    farther from the f32 logits than DISTANCE_FACTOR times the plain
-    route's distance plus BF16_FLOOR, and within `tol` of the plain route
-    where `tol` is given."""
+def f32_logits(cfg, params, prompts):
+    """Prefill logits of an f32 evaluation of the weights `params` on the
+    plain route, one block's weights widened to f32 at a time: the same
+    operations as prefill on the whole tree widened at once, without a
+    second, f32 copy of the model beside it."""
     import dataclasses as dc
     import torch
-    from repro_torch.utils.tree import tree_map
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_index, tree_map
+
+    cfg32 = dc.replace(cfg, dtype="float32")
+
+    def wide(tree):
+        return tree_map(lambda a: a.float(), tree)
+
+    b, s = prompts.shape
+    with torch.inference_mode():
+        x = tfm._embed(params, prompts).float()
+        pos = torch.arange(s, dtype=torch.int32, device=x.device)[None] \
+            .expand(b, s)
+        for st_params, st in zip(params["stages"], cfg.stages):
+            for r in range(st.repeats):
+                for i, spec in enumerate(st.pattern):
+                    bp = wide(tree_index(st_params[f"pos{i}"], r))
+                    x = tfm._block_fwd(cfg32, spec, bp, x, pos,
+                                       impl="ref")[0]
+                    del bp
+        head = "embed" if cfg.tie_embeddings else "lm_head"
+        logits = tfm._logits(cfg32, {"final_norm": params["final_norm"]
+                                     .float(), head: params[head].float()},
+                             x)
+    check(bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: f32 prefill logits not finite")
+    return logits
+
+
+def bf16_route_check(cfg, params, prompts, tol):
+    """Kernel and plain routes in bf16 against each other and against an
+    f32 evaluation of the same weights (`f32_logits`); gates: the kernel
+    route no farther from the f32 logits than DISTANCE_FACTOR times the
+    plain route's distance plus BF16_FLOOR, and within `tol` of the plain
+    route where `tol` is given."""
+    import torch
 
     got, _ = prefill_logits(cfg, params, prompts)
     plain, _ = prefill_logits(cfg, params, prompts, impl="ref")
     rel_kp = rel_diff(got, plain)
-    params32 = tree_map(lambda a: a.float(), params)
-    f32, _ = prefill_logits(dc.replace(cfg, dtype="float32"), params32,
-                            prompts, impl="ref")
-    del params32
+    f32 = f32_logits(cfg, params, prompts)
+    torch.cuda.empty_cache()
     d_k, d_p = rel_diff(got, f32), rel_diff(plain, f32)
     agree = float((got[:, -1].argmax(-1) == plain[:, -1].argmax(-1))
                   .float().mean())
@@ -1418,11 +1571,14 @@ def bf16_route_check(cfg, params, prompts, tol):
     torch.cuda.empty_cache()
 
 
-def serve_phase(arch, kernel, per_prefill, f32_cfg, per_block=False):
-    """Serve `arch` at full width on both routes; check the launches, the
-    prefill logits of the two routes (bf16, then f32 on `f32_cfg`: whole
-    model, or block by block with `per_block`), and return the kernel
-    route's launches of one bf16 prefill and of the f32 prefill."""
+def serve_phase(arch, kernel, per_prefill, f32_cfg, per_block=False,
+                batch=SERVE_BATCH, prompt=SERVE_PROMPT, focus=None):
+    """Serve `arch` at full width on both routes, `batch` prompts of
+    `prompt` tokens; check the launches, the prefill logits of the two
+    routes (bf16, then f32 on `f32_cfg`: whole model, or block by block
+    with `per_block`), profile one prefill (with `focus`, the share of
+    the kernels whose name holds it) and return the kernel route's
+    launches of one bf16 prefill and of the f32 prefill."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_token_stream
@@ -1446,15 +1602,15 @@ def serve_phase(arch, kernel, per_prefill, f32_cfg, per_block=False):
           f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card",
           flush=True)
     # first use of every path outside the timed runs
-    serve(cfg, SERVE_BATCH, 64, 2, params=params)
-    serve(cfg, SERVE_BATCH, 64, 2, params=params, impl="ref")
+    serve(cfg, batch, 64, 2, params=params)
+    serve(cfg, batch, 64, 2, params=params, impl="ref")
 
     runs = {}
     for impl, label in ((None, "kernel"), ("ref", "plain"), (None, "kernel"),
                         ("ref", "plain")):
         K.reset_launches()
-        res = serve(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, seed=0,
-                    params=params, impl=impl)
+        res = serve(cfg, batch, prompt, SERVE_GEN, seed=0, params=params,
+                    impl=impl)
         launches = dict(K.LAUNCHES)
         runs.setdefault(label, []).append((res, launches))
         print(f"  {label:6s} route: prefill {res['prefill_s'] * 1e3:.2f} ms,"
@@ -1468,7 +1624,7 @@ def serve_phase(arch, kernel, per_prefill, f32_cfg, per_block=False):
     check(all(sum(x[1].values()) == 0 for x in runs["plain"]),
           f"{arch}: the plain route launched kernels")
     gen_k, gen_p = res["generated"], runs["plain"][0][0]["generated"]
-    check(gen_k.shape == (SERVE_BATCH, SERVE_GEN)
+    check(gen_k.shape == (batch, SERVE_GEN)
           and bool(((gen_k >= 0) & (gen_k < cfg.vocab_size)).all()),
           f"{arch}: generated tokens of shape {gen_k.shape} out of range")
     agree = float((gen_k == gen_p).mean())
@@ -1476,20 +1632,20 @@ def serve_phase(arch, kernel, per_prefill, f32_cfg, per_block=False):
           f"{gen_k.size}; first row (kernel route): "
           f"{gen_k[0, :16].tolist()}")
     prompts = torch.as_tensor(make_token_stream(
-        cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT, seed=0), device="cuda")
+        cfg.vocab_size, batch, prompt, seed=0), device="cuda")
     bf16_route_check(cfg, params, prompts, BF16_ROUTE_TOL[arch])
     with torch.inference_mode():
         profile_call(f"{arch} prefill, kernel route",
-                     lambda: tfm.prefill(cfg, params, prompts))
+                     lambda: tfm.prefill(cfg, params, prompts), focus=focus)
         _, caches = tfm.prefill(cfg, params, prompts,
-                                max_seq=SERVE_PROMPT + SERVE_GEN + 1)
-        tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device="cuda")
+                                max_seq=prompt + SERVE_GEN + 1)
+        tok = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
 
         def decode4():
             c = caches
             for i in range(4):
-                pos = torch.full((SERVE_BATCH,), SERVE_PROMPT + i,
-                                 dtype=torch.int32, device="cuda")
+                pos = torch.full((batch,), prompt + i, dtype=torch.int32,
+                                 device="cuda")
                 c = tfm.decode_step(cfg, params, c, tok, pos)[1]
 
         profile_call(f"{arch} 4 decode steps", decode4)
@@ -1581,6 +1737,32 @@ def llama_phase(rows):
           f"{{'flash_attention_simt': {cfg32.n_layers}}}")
     rows["flash_attention"]["launches"] = int(launches["flash_attention"])
     rows["flash_attention_simt"]["launches"] = int(
+        launches32["flash_attention_simt"])
+
+
+def gemma_phase(rows):
+    """Phase 15: Gemma 3 12B served at full width and depth in bf16 on the
+    hd-256 tensor-core kernel; its f32 copy cut to one period of the
+    pattern (five local layers, one global) on the SIMT kernel."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import Stage
+
+    cfg = get_config("gemma3-12b")
+    period = cfg.stages[0].pattern
+    cfg32 = dc.replace(cfg, dtype="float32", n_layers=len(period),
+                       stages=(Stage(period, 1),))
+    launches, launches32 = serve_phase(
+        "gemma3-12b", "flash_attention_hd256", cfg.n_layers, cfg32,
+        batch=GEMMA_BATCH, prompt=GEMMA_PROMPT, focus="flash_fwd_sm90_hd256")
+    # bf16 at hd 256 runs the hd-256 kernel only (serve_phase holds the
+    # bf16 prefill to exactly {"flash_attention_hd256": 48}); f32 the SIMT
+    check(launches32 == {"flash_attention_simt": len(period)},
+          f"gemma3-12b f32 prefill launched {launches32}, expected "
+          f"{{'flash_attention_simt': {len(period)}}}")
+    rows["flash_attention_hd256"]["launches"] = int(
+        launches["flash_attention_hd256"])
+    rows["flash_attention_simt"]["launches_phase15"] = int(
         launches32["flash_attention_simt"])
 
 
@@ -3526,6 +3708,7 @@ def main() -> None:
     clocked("phase 6", phase6)
     clocked("phase 7", llm_kernel_phase, rows)
     clocked("phase 8", llama_phase, rows)
+    clocked("phase 15", gemma_phase, rows)
     clocked("phase 9", xlstm_phase, rows)
     profiled = clocked("phase 10", paper_phase)
     sweep_spec = clocked("phase 11 sweeps", sweep_phase, rows, ww_specs)

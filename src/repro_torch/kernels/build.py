@@ -118,6 +118,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attention_simt.restype = i
     lib.flash_attention_sm90.argtypes = [p, p, p, p, *([i] * 8), f, p]
     lib.flash_attention_sm90.restype = i
+    lib.flash_attention_sm90_hd256.argtypes = [p, p, p, p, *([i] * 8), f, p]
+    lib.flash_attention_sm90_hd256.restype = i
     lib.mlstm_chunk_simt.argtypes = [*([p] * 12), i, i, i, i, f, p]
     lib.mlstm_chunk_simt.restype = i
     lib.mlstm_chunk_sm90.argtypes = [*([p] * 12), i, i, i, f, p]

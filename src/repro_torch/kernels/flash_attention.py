@@ -9,6 +9,10 @@ compute it, chosen by `flash_route` from the dtype and head dim alone:
 
 - "flash_attention": bf16 at head dims 64 and 128, on the tensor cores
   (`csrc/flash_attention_sm90.cu`: wgmma, TMA, an mbarrier ring);
+- "flash_attention_hd256": bf16 at head dim 256 (Gemma 3's), on the
+  tensor cores (`csrc/flash_attention_sm90_hd256.cu`: the same design
+  with 64-key tiles and one q buffer, so that a 256-wide O accumulator
+  fits the registers and the K/V ring the shared memory);
 - "flash_attention_simt": everything else (f32, where the tensor cores
   would round to TF32, and bf16 at other head dims), on the CUDA cores
   (`csrc/flash_attention.cu`).
@@ -32,12 +36,20 @@ from repro_torch.kernels import ref
 _DTYPES = (torch.float32, torch.bfloat16)
 # head dims of the tensor-core kernel's template instances
 SM90_HEAD_DIMS = (64, 128)
+# the head dim of the second tensor-core kernel
+HD256 = 256
+# the tensor-core routes and their C entries (TMA: 16-byte-aligned
+# operands)
+_TMA_ENTRIES = {"flash_attention": "flash_attention_sm90",
+                "flash_attention_hd256": "flash_attention_sm90_hd256"}
 
 
 def flash_route(dtype, hd: int) -> str:
     """The kernel that CUDA tensors of this dtype and head dim launch."""
     if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS:
         return "flash_attention"
+    if dtype == torch.bfloat16 and hd == HD256:
+        return "flash_attention_hd256"
     return "flash_attention_simt"
 
 
@@ -76,14 +88,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         out = torch.empty_like(q)
         args = (b, s, t, h, hkv, hd, int(causal), int(window),
                 1.0 / math.sqrt(hd), _kern._stream(q))
-        if name == "flash_attention":
+        if name in _TMA_ENTRIES:
             # TMA reads from 16-byte-aligned addresses only
             for n, x in (("q", q), ("k", k), ("v", v)):
                 if x.data_ptr() % 16:
                     raise ValueError(f"flash_attention: {n} is not 16-byte "
                                      "aligned")
-            _kern._launch(name, lib.flash_attention_sm90, q.data_ptr(),
-                          k.data_ptr(), v.data_ptr(), out.data_ptr(), *args)
+            _kern._launch(name, getattr(lib, _TMA_ENTRIES[name]),
+                          q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), *args)
         else:
             if hd > lib.flash_attention_simt_max_head_dim():
                 raise ValueError(

@@ -310,7 +310,11 @@ def _normal(rng, *shape, scale=1.0):
     # the tensor-core kernel's instances (bf16, hd 64 / 128): S > T,
     # ragged S, one kv head, windows (rows with no key in the window)
     (1, 200, 77, 4, 1, 128, 0), (1, 200, 130, 4, 2, 64, 24),
-    (2, 77, 77, 8, 1, 64, 16), (1, 300, 300, 4, 1, 128, 100)])
+    (2, 77, 77, 8, 1, 64, 16), (1, 300, 300, 4, 1, 128, 100),
+    # the hd-256 tensor-core kernel (bf16): the same, and S < T
+    (1, 200, 77, 4, 1, 256, 0), (1, 200, 130, 4, 2, 256, 24),
+    (2, 77, 77, 8, 1, 256, 16), (1, 300, 300, 4, 1, 256, 100),
+    (1, 20, 37, 2, 1, 256, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, hkv, hd,
                                             window, dtype):
@@ -331,17 +335,19 @@ def test_flash_kernel_matches_plain_version(cuda, b, s, t, h, hkv, hd,
                                                   window=window))
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_tensor_core_kernel_non_causal(cuda, hd):
-    """bf16 at hd 64 / 128 launches the tensor-core kernel, which leaves
-    non-causal inputs unmasked, as the plain version does."""
+    """bf16 at hd 64 / 128 / 256 launches a tensor-core kernel, which
+    leaves non-causal inputs unmasked, as the plain version does."""
     from repro_torch.kernels import flash_attention as flash, ref
     rng = np.random.default_rng(hd)
     q, k, v = (torch.tensor(_normal(rng, 2, 256, heads, hd))
                .to(torch.bfloat16).to(cuda) for heads in (4, 2, 2))
     kern.reset_launches()
     got = flash.flash_attention(q, k, v, causal=False)
-    assert dict(kern.LAUNCHES) == {"flash_attention": 1}
+    route = "flash_attention_hd256" if hd == 256 else "flash_attention"
+    assert flash.flash_route(torch.bfloat16, hd) == route
+    assert dict(kern.LAUNCHES) == {route: 1}
     want = ref.flash_attention_ref(q, k, v, causal=False)
     tol = FLASH_TOL[torch.bfloat16]
     np.testing.assert_allclose(got.float().cpu().numpy(),

@@ -54,6 +54,7 @@ def _qkv(b, s, t, h, hkv, hd, seed, dtype):
 
 @pytest.mark.parametrize("s,h,hkv,hd,blk", [
     (64, 4, 2, 32, 16), (48, 4, 4, 64, 16), (128, 8, 2, 32, 32),
+    (64, 4, 2, 256, 16),
 ])
 @pytest.mark.parametrize("window", [0, 24])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -3,9 +3,9 @@ against the reference, on the CPU.
 
 Inputs are numpy arrays (or the reference's own `init_params`) handed to
 both packages.  Modules are held to the reference at 1e-5 in f32; the
-slice as a whole (reduced llama3-8b and xlstm-125m, f32) at the
-reference's 2e-4 for prefill logits (tests/test_attention_impl.py), with
-greedy tokens equal.  The card's kernel route is covered by
+slice as a whole (reduced llama3-8b, gemma3-12b and xlstm-125m, f32) at
+the reference's 2e-4 for prefill logits (tests/test_attention_impl.py),
+with greedy tokens equal.  The card's kernel route is covered by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 import dataclasses
@@ -35,6 +35,7 @@ from repro_torch.launch import serve as serve_lib
 from repro_torch.models import attention, layers, transformer as tfm, xlstm
 
 F32 = dict(rtol=1e-5, atol=1e-5)
+REPO = Path(__file__).resolve().parents[1]
 
 
 def _rng(seed):
@@ -206,10 +207,11 @@ def test_slstm_apply_and_decode():
 
 
 # ---------------------------------------------------------------------------
-# the slice: reduced llama3-8b and xlstm-125m
+# the slice: reduced llama3-8b, gemma3-12b and xlstm-125m
 # ---------------------------------------------------------------------------
 
 SLICE = {"llama3-8b": dict(batch=2, prompt_len=12),
+         "gemma3-12b": dict(batch=2, prompt_len=12),
          "xlstm-125m": dict(batch=2, prompt_len=32)}   # two mLSTM chunks
 # prefill logits and caches: attention models at the reference's 2e-4
 # (tests/test_attention_impl.py); xLSTM at the reference's f32 mLSTM
@@ -218,6 +220,7 @@ SLICE = {"llama3-8b": dict(batch=2, prompt_len=12),
 # the reference's own f32 logits are off by up to 3.0e-4 and the port's
 # by up to 3.3e-4 on these prompts (ROADMAP Queue 3)
 SLICE_TOL = {"llama3-8b": dict(rtol=2e-4, atol=2e-4),
+             "gemma3-12b": dict(rtol=2e-4, atol=2e-4),
              "xlstm-125m": dict(rtol=6e-3, atol=6e-3)}
 
 
@@ -242,15 +245,19 @@ def _prompts(cfg, name):
 
 def test_prefill_and_greedy_decode_match_reference(model):
     name, jcfg, cfg, jparams, params = model
-    toks = _prompts(cfg, name)
+    _prefill_and_decode(jcfg, cfg, jparams, params, _prompts(cfg, name),
+                        SLICE_TOL[name])
+
+
+def _prefill_and_decode(jcfg, cfg, jparams, params, toks, tol, n_gen=8):
+    """Prefill, then n_gen greedy tokens in both packages: logits and
+    caches within `tol`, the tokens equal."""
     b, s = toks.shape
-    n_gen = 8
     with torch.inference_mode():
         logits, caches = tfm.prefill(cfg, params, torch.tensor(toks),
                                      max_seq=s + n_gen + 1)
     jlogits, jcaches = jax_tfm.prefill(jcfg, jparams, jnp.asarray(toks),
                                        max_seq=s + n_gen + 1)
-    tol = SLICE_TOL[name]
     _close(logits, jlogits, tol)
     _close_tree(caches, jcaches, tol)
     nxt = tfm.greedy_sample(logits)[:, None]
@@ -266,12 +273,39 @@ def test_prefill_and_greedy_decode_match_reference(model):
                                              torch.tensor(pos))
         jlogits, jcaches = decode(jparams, jcaches, jnxt, jnp.asarray(pos))
         _close(logits, jlogits, tol)
+        _close_tree(caches, jcaches, tol)
         nxt = tfm.greedy_sample(logits)[:, None]
         jnxt = jax_tfm.greedy_sample(jlogits)[:, None]
         got.append(nxt)
         want.append(np.asarray(jnxt))
     np.testing.assert_array_equal(torch.cat(got, 1).numpy(),
                                   np.concatenate(want, 1))
+
+
+def _narrowed(cfg, d_head, window):
+    """cfg with head dim `d_head` and every windowed layer's window
+    `window` (either package's config classes)."""
+    stages = tuple(dataclasses.replace(st, pattern=tuple(
+        dataclasses.replace(blk, window=window) if blk.window else blk
+        for blk in st.pattern)) for st in cfg.stages)
+    return dataclasses.replace(cfg, d_head=d_head, stages=stages).validate()
+
+
+def test_gemma_hd256_past_the_window_matches_reference():
+    """Reduced Gemma 3 at its own head dim 256 with local windows of 8:
+    24-token prompts, so the window binds in prefill and the local
+    layers' decode rings (capacity 8) hold only the prompt's last 8
+    tokens and wrap from the first step; prefill and 8 greedy steps."""
+    jcfg = _narrowed(jax_reduced(jax_get_config("gemma3-12b")), 256, 8)
+    cfg = _narrowed(reduced(get_config("gemma3-12b")), 256, 8)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert cfg.head_dim == 256
+    assert sorted({blk.window for blk in cfg.all_layers()}) == [0, 8]
+    jparams = jax_tfm.init_params(jcfg, jax.random.PRNGKey(0))
+    params = convert.params_from_reference(jparams, "cpu")
+    toks = make_token_stream(cfg.vocab_size, 2, 24, seed=0)
+    _prefill_and_decode(jcfg, cfg, jparams, params, toks,
+                        SLICE_TOL["gemma3-12b"])
 
 
 def test_serve_matches_reference_serve(model):
@@ -297,6 +331,29 @@ def test_cpu_routes(model):
         b, _ = tfm.prefill(cfg, params, toks, impl="ref")
     assert torch.equal(a, b)
     assert sum(kern.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "gemma3-12b", "xlstm-125m"])
+def test_chip_smoke_f32_logits_is_the_f32_prefill(name):
+    """chip_smoke.py's yardstick for the bf16 gates, `f32_logits` (one
+    block's weights widened to f32 at a time), is bitwise the plain
+    route's prefill of the whole tree widened to f32."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    from repro_torch.utils.tree import tree_map
+    cfg = dataclasses.replace(reduced(get_config(name)), dtype="bfloat16")
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.tensor(_prompts(cfg, name))
+    got = chip_smoke.f32_logits(cfg, params, toks)
+    with torch.inference_mode():
+        want = tfm.prefill(dataclasses.replace(cfg, dtype="float32"),
+                           tree_map(lambda a: a.float(), params), toks,
+                           impl="ref")[0]
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
