@@ -52,34 +52,43 @@ file; exits non-zero, printing no result, without them.  Phases:
    attention at Llama-3 8B's prefill shape (B 4, S = T = 1024, H 32,
    Hkv 8, hd 128; windows 0 and 1024) and two ragged shapes, in bf16
    through the tensor-core kernel (plus Whisper's heads, hd 64, S = T =
-   1500) and in f32 through the SIMT kernel, each launch checked against
-   `flash_route`; bf16 at Gemma 3 12B's head dim 256 (H 16, Hkv 8)
-   through the hd-256 tensor-core kernel at (B 4, S = T = 1024), Llama's
-   flops, at Gemma's serving shapes (B 2, S = T = 2048, windows 0 and
-   1024) and at a ragged 1000, every one timed beside its bound, the
-   plain version, `scaled_dot_product_attention` (a window as an explicit
-   mask) and the SIMT kernel on the same inputs, which it must beat ten
-   times over at the first; the mLSTM chunk kernels at xLSTM-125M's
-   chunk (B 4, H 4, L 256, hd 192) and at L = 100, with a carried state,
-   in bf16 through the tensor-core kernel and in f32 through the SIMT
-   kernel, each launch checked against `mlstm_route`; bitwise repeats, device
-   times beside the bound, the plain version and (flash only)
+   1500) and in f32 through the f32 tensor-core kernel (3xTF32), each
+   launch checked against `flash_route`; at Gemma 3 12B's head dim 256
+   (H 16, Hkv 8), in bf16 through the hd-256 tensor-core kernel and in
+   f32 through the f32 one, at (B 4, S = T = 1024), Llama's flops, at
+   Gemma's serving shapes (B 2, S = T = 2048, windows 0 and 1024) and
+   at a ragged 1000, every one timed beside its bound, the plain
+   version, `scaled_dot_product_attention` (a window as an explicit
+   mask) and the SIMT kernel on the same inputs, which the hd-256 kernel
+   must beat ten times over at the first and the f32 kernel twice over
+   (F32_OVER_SIMT) at Llama's first row and Gemma's windowed one; the
+   mLSTM chunk kernels at xLSTM-125M's chunk (B 4, H 4, L 256, hd 192)
+   and at L = 100, with a carried state, in bf16 through the tensor-core
+   kernel and in f32 through the f32 tensor-core kernel, each launch
+   checked against `mlstm_route`; bitwise repeats, device times beside
+   the bound, the plain version, (flash only)
    `scaled_dot_product_attention`, a yardstick the port never calls, and
-   the SIMT kernels' times on the same bf16 inputs (the tensor-core mLSTM
-   kernel must beat its SIMT kernel there).  The tensor-core mLSTM
-   kernel's bound counts the products it runs (C and k w_k as two bf16
-   halves each, at the bf16 rate); `bound_ms_f32_qc` keeps the earlier
-   definition, q C at the f32 rate.
+   the SIMT kernels' times on the same inputs (the tensor-core mLSTM
+   kernels must beat their SIMT kernel there, the f32 one twice over).
+   Every f32 row holds the routed kernel and the SIMT kernel on the same
+   inputs to FLASH_TOL / MLSTM_TOL, FLASH_ROW_TOL and the f32-grade
+   limit F32_GRADE_TOL, and to a bitwise repeat.  The bf16 tensor-core
+   mLSTM kernel's bound counts the products it runs (C and k w_k as two
+   bf16 halves each, at the bf16 rate; `bound_ms_f32_qc` keeps the
+   earlier definition, q C at the f32 rate); an f32 row's bound counts
+   every product as three TF32 products (`bound_ms_f32`: at the f32
+   rate of the CUDA cores).
 8. Llama-3 8B serving at full width and depth (bf16, random weights from
    seed 0): `serve(batch=4, prompt_len=1024, gen=32)` on the kernel route
    and on the plain route; prefill logits of the two routes compared, and
    again in f32 with the depth cut to 2 layers; one prefill under
    `torch.profiler`.  The bf16 prefill launches the tensor-core flash
-   kernel 32 times and the SIMT kernel never; the f32 one only the SIMT
-   kernel.
+   kernel 32 times and no other; the f32 one only the f32 tensor-core
+   kernel, 2 times.  The f32 prefill is timed in turns on its route and
+   on the SIMT kernels (`simt_routes`, the f32 route before them).
 9. xLSTM-125M serving at its full config (bf16): the same, with the f32
    run at full depth.  The bf16 prefill launches the tensor-core mLSTM
-   kernel 40 times and the SIMT kernel never; the f32 one only the SIMT
+   kernel 40 times and no other; the f32 one only the f32 tensor-core
    kernel, 40 times.
 10. The paper's evaluation (`repro_torch.experiments`), at the reference
    scripts' settings on the kernel route, each method and seed a `scan`
@@ -206,9 +215,9 @@ file; exits non-zero, printing no result, without them.  Phases:
    layers and the decode rings wrap from the first step; the same checks
    as phase 8, the bf16 prefill holding the hd-256 kernel to exactly 48
    launches, the f32 evaluation of the bf16 weights taken one block at a
-   time, and the f32 copy cut to one period (six layers) on the SIMT
-   kernel, 6 launches; one prefill profiled, with the hd-256 kernel's
-   share of the busy time.
+   time, and the f32 copy cut to one period (six layers) on the f32
+   tensor-core kernel, 6 launches, timed as phase 8's; one prefill
+   profiled, with the hd-256 kernel's share of the busy time.
 
 Each phase ends with a `[clock]` line (its seconds and the script's),
 also on standard error; past WATCHDOG_S seconds every thread's stack
@@ -257,7 +266,11 @@ SOURCES = {"matvec": "src/repro_torch/kernels/csrc/cut_kernels.cu",
                "src/repro_torch/kernels/csrc/flash_attention_sm90_hd256.cu",
            "flash_attention_simt":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "flash_attention_f32":
+               "src/repro_torch/kernels/csrc/flash_attention_sm90_f32.cu",
            "mlstm_chunk": "src/repro_torch/kernels/csrc/mlstm_chunk_sm90.cu",
+           "mlstm_chunk_f32":
+               "src/repro_torch/kernels/csrc/mlstm_chunk_sm90_f32.cu",
            "mlstm_chunk_simt": "src/repro_torch/kernels/csrc/mlstm_chunk.cu"}
 REPLACES = {"matvec": "src/repro/kernels/cut_eval.py:60",
             "vecmat": "src/repro/kernels/cut_eval.py:96",
@@ -268,7 +281,9 @@ REPLACES = {"matvec": "src/repro/kernels/cut_eval.py:60",
                 "src/repro/kernels/flash_attention.py:26",
             "flash_attention_simt":
                 "src/repro/kernels/flash_attention.py:26",
+            "flash_attention_f32": "src/repro/kernels/flash_attention.py:26",
             "mlstm_chunk": "src/repro/kernels/mlstm_chunk.py:25",
+            "mlstm_chunk_f32": "src/repro/kernels/mlstm_chunk.py:25",
             "mlstm_chunk_simt": "src/repro/kernels/mlstm_chunk.py:25"}
 # the batched forms of the sweep engine (phase 11): the same TPU kernels,
 # which the reference batches by vmapping them
@@ -1034,8 +1049,9 @@ def da_phase(rows):
 
 # the port's kernels by the names the profiler gives them
 OUR_KERNELS = ("matvec", "vecmat", "rank1", "fused_round",
-               "flash_fwd_sm90", "flash_fwd", "mlstm_y", "mlstm_state",
-               "mlstm_chunk_sm90")
+               "flash_fwd_sm90", "flash_fwd_sm90_f32", "flash_fwd",
+               "mlstm_y", "mlstm_state", "mlstm_chunk_sm90",
+               "mlstm_chunk_sm90_f32")
 
 
 def profile_phase(label, spec):
@@ -1095,6 +1111,7 @@ def profile_call(label, fn, focus=None):
 # ---------------------------------------------------------------------------
 
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 on the tensor cores
+TF32_FLOP_PER_S = 495e12    # H100 SXM dense TF32 on the tensor cores
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 4e-2}   # tests/test_kernels.py:230
 MLSTM_TOL = {"float32": 6e-3, "bfloat16": 6e-2}   # tests/test_kernels.py:285
 # every flash row beside FLASH_TOL: the largest over query rows of max
@@ -1106,6 +1123,16 @@ MLSTM_TOL = {"float32": 6e-3, "bfloat16": 6e-2}   # tests/test_kernels.py:285
 # bf16 ulp of a row's largest entry) and those of the planted faults of
 # `fault_masks` (0.20 at least), which every row also checks
 FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# every f32 row of the f32 tensor-core kernels and of the SIMT kernels,
+# beside the limits above: flash by `row_rel_err`, mLSTM by max |diff| /
+# max |plain| of each of y, C', n' and m'.  Each limit lies between the
+# f32 kernels' readings on the H100 (flash at most 4.6e-6, both kernels;
+# mLSTM's y 1.05e-5 for the SIMT kernel, 9.7e-6 for the f32 tensor-core
+# one, at xLSTM-125M's chunk)
+# and one TF32 product's (flash 9e-4 to 1.5e-3, mLSTM's y 8.5e-4, as
+# tests/test_torch_flash_f32.py and tests/test_torch_mlstm_f32.py
+# emulate it), which FLASH_ROW_TOL and MLSTM_TOL let through
+F32_GRADE_TOL = {"flash": 1e-5, "mlstm": 5e-5}
 # (B, S, T, H, Hkv, hd, window): Llama-3 8B's prefill first
 FLASH_SHAPES = ((4, 1024, 1024, 32, 8, 128, 0),
                 (4, 1024, 1024, 32, 8, 128, 1024),
@@ -1127,6 +1154,10 @@ FLASH_HD256_SHAPES = ((4, 1024, 1024, 16, 8, 256, 0),
 # many times faster than the SIMT kernel at the first row
 FLASH_HD256_MAIN = FLASH_HD256_SHAPES[2]
 HD256_OVER_SIMT = 10.0
+# the f32 tensor-core kernels must be at least this many times faster than
+# the SIMT kernels on the same f32 inputs at Llama's first row, Gemma's
+# windowed row and xLSTM-125M's chunk
+F32_OVER_SIMT = 2.0
 # (B, H, L, hd): xLSTM-125M's chunk first
 MLSTM_SHAPES = ((4, 4, 256, 192), (4, 4, 100, 192))
 
@@ -1183,14 +1214,17 @@ def flash_operands(shape, dtype, seed):
             "v": rnd(b, t, hkv, hd)}
 
 
-def flash_work(shape, dtype):
+def flash_work(shape, dtype, tf32x3=False):
     """(bytes, seconds of operations): q, k, v read and the output written
     once; q k^T and p v over the pairs the masks leave, at the input
-    type's rate."""
+    type's rate, or with `tf32x3` as three TF32 products each (the least
+    time for f32-accurate products on the tensor cores)."""
     b, s, t, h, hkv, hd, window = shape
     es = 2 if "bfloat16" in str(dtype) else 4
     nbytes = (2 * b * s * h * hd + 2 * b * t * hkv * hd) * es
     flops = 4 * hd * causal_pairs(s, t, window) * b * h
+    if tf32x3:
+        return nbytes, 3 * flops / TF32_FLOP_PER_S
     return nbytes, flops / flop_rate(dtype)
 
 
@@ -1213,20 +1247,24 @@ def mlstm_operands(shape, dtype, seed):
 MLSTM_ARGS = ("q", "k", "v", "li", "lf", "c", "n", "m")
 
 
-def mlstm_work(shape, dtype, split=False):
+def mlstm_work(shape, dtype, split=False, tf32x3=False):
     """(bytes, seconds of operations): q/k/v, gates and state read once,
     y and the new state written once; q k^T and p v over the causal pairs
     and k^T v at the input type's rate, q C and q . n (C and n are f32)
-    at the f32 rate.  With `split`, the arithmetic the tensor-core kernel
-    runs: C and k w_k enter as bf16 halves hi and lo, so q C and
+    at the f32 rate.  With `split`, the arithmetic the bf16 tensor-core
+    kernel runs: C and k w_k enter as bf16 halves hi and lo, so q C and
     (k w_k)^T v are two bf16 products each at the bf16 rate; q . n stays
-    an f32 reduction."""
+    an f32 reduction.  With `tf32x3` (f32), the four products as three
+    TF32 products each, q . n and the n' sums at the f32 rate."""
     b, h, l, hd = shape
     es = 2 if "bfloat16" in str(dtype) else 4
     bh = b * h
     nbytes = bh * (4 * l * hd * es + 2 * l * 4
                    + 2 * (hd * hd + hd + 1) * 4)
     pairs = 4 * hd * l * (l + 1) // 2
+    if tf32x3:
+        return nbytes, (3 * bh * (pairs + 4 * l * hd * hd) / TF32_FLOP_PER_S
+                        + bh * 4 * l * hd / F32_FLOP_PER_S)
     if split:
         typed = bh * (pairs + 2 * 2 * l * hd * hd + 2 * 2 * l * hd * hd)
         return nbytes, (typed / BF16_FLOP_PER_S
@@ -1284,12 +1322,17 @@ def llm_kernel_phase(rows):
     print("flash   dtype    kernel               B    S    T  H Hkv  hd "
           "window  max_abs_err  row_rel_err (faults edge/tile)  ms  plain_ms"
           "  sdpa_ms  bound_ms")
-    hd256 = []
+    print(f"  every f32 row, the routed kernel and the SIMT kernel on the "
+          f"same inputs: row_rel_err within F32_GRADE_TOL "
+          f"{F32_GRADE_TOL['flash']} of the plain version; f32 bound_ms as "
+          "three TF32 products (bound_ms_f32: at the f32 rate)")
+    hd256, f32_rows = [], []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
+        f32 = dtype == torch.float32
         tol = FLASH_TOL[dname]
-        shapes = FLASH_SHAPES + ((FLASH_HD64_SHAPE,) + FLASH_HD256_SHAPES
-                                 if dtype == torch.bfloat16 else ())
+        shapes = FLASH_SHAPES + (FLASH_HD256_SHAPES if f32
+                                 else (FLASH_HD64_SHAPE,) + FLASH_HD256_SHAPES)
         for i, shape in enumerate(shapes):
             window = shape[-1]
             name = flash.flash_route(dtype, shape[5])
@@ -1329,8 +1372,26 @@ def llm_kernel_phase(rows):
                     + " ".join(str(x) for x in shape) + f"  {err:.3e}  "
                     f"{row_err:.3e} ({faults['edge']:.3e}/"
                     f"{faults['tile']:.3e})")
+            if f32:
+                # the SIMT kernel on the same inputs, held to the same limits
+                simt = simt_flash(lib, o, window)
+                try:
+                    simt_err = close(simt, want, tol, tol)
+                except AssertionError as e:
+                    fail(f"flash_attention_simt f32 {shape} vs plain: {e}")
+                simt_row = row_rel_err(simt, want)
+                grade = F32_GRADE_TOL["flash"]
+                check(row_err <= grade and simt_row <= grade,
+                      f"flash f32 {shape}: row_rel_err {row_err:.3e} "
+                      f"({name}), {simt_row:.3e} (SIMT) beyond "
+                      f"F32_GRADE_TOL {grade}")
+                check(torch.equal(simt, simt_flash(lib, o, window)),
+                      f"flash_attention_simt f32 {shape} not bitwise "
+                      "repeatable")
+                line += (f"; the SIMT kernel {simt_err:.3e} "
+                         f"{simt_row:.3e}")
             if i == 0 or shape in FLASH_HD256_SHAPES:
-                nbytes, t_ops = flash_work(shape, dtype)
+                nbytes, t_ops = flash_work(shape, dtype, tf32x3=f32)
                 copies = [flash_operands(shape, dtype, seed=500 + k)
                           for k in range(max(2, -(-2 * L2_BYTES // nbytes)))]
                 # the same function in one library call: a window as an
@@ -1352,22 +1413,19 @@ def llm_kernel_phase(rows):
                 ms = median_ms(kern, copies, n_launch=8, reps=5)
                 plain_ms = median_ms(plain, copies, n_launch=4, reps=5)
                 lib_ms = median_ms(sdpa, copies, n_launch=8, reps=5)
+                simt_ms = median_ms(lambda o: simt_flash(lib, o, window),
+                                    copies, n_launch=4, reps=5)
                 bound, bound_by = bound_of(nbytes, t_ops)
                 line += (f"  {ms:.4f}  {plain_ms:.4f}  {lib_ms:.4f}  "
                          f"{bound:.4f} ({bound_by}; sdpa vs plain "
-                         f"{lib_err:.2e})")
+                         f"{lib_err:.2e}); the SIMT kernel on the same "
+                         f"inputs {simt_ms:.4f} ms")
                 rec = {
                     "name": name, "route": "cuda", "source": SOURCES[name],
                     "replaces": REPLACES[name], "max_abs_err": err,
                     "row_rel_err": row_err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound, "bound_by": bound_by,
                     "library_ms": lib_ms}
-                if name != "flash_attention_simt":
-                    simt_ms = median_ms(
-                        lambda o: simt_flash(lib, o, window), copies,
-                        n_launch=4, reps=5)
-                    line += (f"; the SIMT kernel on the same inputs "
-                             f"{simt_ms:.4f} ms")
                 if name == "flash_attention_hd256":
                     hd256.append(dict(rec, shape=list(shape),
                                       simt_ms=simt_ms))
@@ -1375,6 +1433,18 @@ def llm_kernel_phase(rows):
                         check(HD256_OVER_SIMT * ms <= simt_ms,
                               f"{name} {shape}: {ms:.4f} ms, not "
                               f"{HD256_OVER_SIMT}x faster than the SIMT "
+                              f"kernel's {simt_ms:.4f} ms")
+                elif f32:
+                    bound_f32 = bound_of(*flash_work(shape, dtype))[0]
+                    line += f"; bound at the f32 rate {bound_f32:.4f}"
+                    f32_rows.append(dict(
+                        rec, shape=list(shape), bound_ms_f32=bound_f32,
+                        simt_ms=simt_ms, simt_max_abs_err=simt_err,
+                        simt_row_rel_err=simt_row))
+                    if shape in (FLASH_SHAPES[0], FLASH_HD256_MAIN):
+                        check(F32_OVER_SIMT * ms <= simt_ms,
+                              f"{name} {shape}: {ms:.4f} ms, not "
+                              f"{F32_OVER_SIMT}x faster than the SIMT "
                               f"kernel's {simt_ms:.4f} ms")
                 else:
                     rows[name] = rec
@@ -1387,11 +1457,29 @@ def llm_kernel_phase(rows):
                            "plain_ms", "bound_ms", "bound_by", "library_ms",
                            "simt_ms")}
         for r in hd256])
+    # the f32 rows: Llama's prefill shape (phase 8's) with every timed
+    # shape beside it, for the tensor-core kernel and for the SIMT kernel
+    # on the same inputs (the f32 route before it, on no path now)
+    same = ("shape", "plain_ms", "bound_ms", "bound_ms_f32", "bound_by",
+            "library_ms")
+    rows["flash_attention_f32"] = dict(f32_rows[0], shapes=[
+        {k: r[k] for k in same + ("max_abs_err", "row_rel_err", "ms",
+                                  "simt_ms")}
+        for r in f32_rows])
+    simt_rows = [dict({k: r[k] for k in same}, max_abs_err=r[
+        "simt_max_abs_err"], row_rel_err=r["simt_row_rel_err"],
+        ms=r["simt_ms"]) for r in f32_rows]
+    rows["flash_attention_simt"] = dict(
+        simt_rows[0], name="flash_attention_simt", route="cuda",
+        source=SOURCES["flash_attention_simt"],
+        replaces=REPLACES["flash_attention_simt"], launches=0,
+        shapes=simt_rows)
 
     print("mlstm   dtype    kernel            B  H    L   hd  "
           "max_abs_err(y/c/n/m)  ms  plain_ms  bound_ms")
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
+        f32 = dtype == torch.float32
         tol = MLSTM_TOL[dname]
         for i, shape in enumerate(MLSTM_SHAPES):
             name = mk.mlstm_route(dtype, shape[3], shape[2])
@@ -1408,8 +1496,9 @@ def llm_kernel_phase(rows):
             check(dict(K.LAUNCHES) == {name: 1},
                   f"mlstm_chunk {dname} {shape} launched {dict(K.LAUNCHES)},"
                   f" expected {{{name!r}: 1}}")
+            want = plain(o)
             try:
-                errs = [close(x, y, tol, tol) for x, y in zip(got, plain(o))]
+                errs = [close(x, y, tol, tol) for x, y in zip(got, want)]
             except AssertionError as e:
                 fail(f"{name} {dname} {shape} vs plain: {e}")
             check(all(torch.equal(x, y) for x, y in zip(got, kern(o))),
@@ -1417,19 +1506,45 @@ def llm_kernel_phase(rows):
             line = (f"mlstm   {dname:8s} {name:16s} "
                     + " ".join(str(x) for x in shape) + "  "
                     + "/".join(f"{e:.2e}" for e in errs))
+            if f32:
+                # the SIMT kernel on the same inputs, held to the same
+                # limits; both each output's max |diff| / max |plain|
+                simt = simt_mlstm(lib, o)
+                try:
+                    simt_errs = [close(x, y, tol, tol)
+                                 for x, y in zip(simt, want)]
+                except AssertionError as e:
+                    fail(f"mlstm_chunk_simt f32 {shape} vs plain: {e}")
+                rels = [rel_diff(x, y) for x, y in zip(got, want)]
+                simt_rels = [rel_diff(x, y) for x, y in zip(simt, want)]
+                grade = F32_GRADE_TOL["mlstm"]
+                check(max(rels + simt_rels) <= grade,
+                      f"mlstm f32 {shape}: relative errors {rels} ({name}),"
+                      f" {simt_rels} (SIMT) beyond F32_GRADE_TOL {grade}")
+                check(all(torch.equal(x, y) for x, y in
+                          zip(simt, simt_mlstm(lib, o))),
+                      f"mlstm_chunk_simt f32 {shape} not bitwise repeatable")
+                line += ("; relative " + "/".join(f"{e:.2e}" for e in rels)
+                         + "; the SIMT kernel "
+                         + "/".join(f"{e:.2e}" for e in simt_errs)
+                         + ", relative "
+                         + "/".join(f"{e:.2e}" for e in simt_rels))
             if i == 0:
                 # the bound of the arithmetic the routed kernel runs; for
-                # the tensor-core kernel also the earlier definition (q C
-                # at the f32 rate), which earlier measurements used
+                # the bf16 tensor-core kernel also the earlier definition
+                # (q C at the f32 rate), which earlier measurements used
                 tc = name == "mlstm_chunk"
-                nbytes, t_ops = mlstm_work(shape, dtype, split=tc)
+                nbytes, t_ops = mlstm_work(shape, dtype, split=tc,
+                                           tf32x3=f32)
                 copies = [mlstm_operands(shape, dtype, seed=700 + k)
                           for k in range(max(2, -(-2 * L2_BYTES // nbytes)))]
                 ms = median_ms(kern, copies)
                 plain_ms = median_ms(plain, copies, n_launch=8, reps=5)
+                simt_ms = median_ms(lambda o: simt_mlstm(lib, o), copies)
                 bound, bound_by = bound_of(nbytes, t_ops)
                 line += (f"  {ms:.4f}  {plain_ms:.4f}  {bound:.4f} "
-                         f"({bound_by})")
+                         f"({bound_by}); the SIMT kernel on the same inputs "
+                         f"{simt_ms:.4f} ms")
                 rows[name] = {
                     "name": name, "route": "cuda", "source": SOURCES[name],
                     "replaces": REPLACES[name], "max_abs_err": max(errs),
@@ -1439,17 +1554,24 @@ def llm_kernel_phase(rows):
                     f32_qc = bound_of(*mlstm_work(shape, dtype))[0]
                     rows[name]["bound_ms_f32_qc"] = f32_qc
                     line += f"; with q C at the f32 rate {f32_qc:.4f}"
-                if name != "mlstm_chunk_simt":
-                    simt_ms = median_ms(lambda o: simt_mlstm(lib, o), copies)
-                    simt_errs = [float((x.float() - y.float()).abs().max())
-                                 for x, y in zip(simt_mlstm(lib, o),
-                                                 plain(o))]
-                    line += (f"; the SIMT kernel on the same inputs "
-                             f"{simt_ms:.4f} ms, max_abs_err "
-                             + "/".join(f"{e:.2e}" for e in simt_errs))
                     check(ms < simt_ms,
                           f"{name} ({ms:.4f} ms) is not faster than the "
                           f"SIMT kernel ({simt_ms:.4f} ms) on the same inputs")
+                else:
+                    bound_f32 = bound_of(*mlstm_work(shape, dtype))[0]
+                    line += f"; bound at the f32 rate {bound_f32:.4f}"
+                    rows[name]["bound_ms_f32"] = bound_f32
+                    rows[name]["simt_ms"] = simt_ms
+                    rows["mlstm_chunk_simt"] = dict(
+                        rows[name], name="mlstm_chunk_simt",
+                        source=SOURCES["mlstm_chunk_simt"],
+                        replaces=REPLACES["mlstm_chunk_simt"],
+                        max_abs_err=max(simt_errs), ms=simt_ms, launches=0)
+                    del rows["mlstm_chunk_simt"]["simt_ms"]
+                    check(F32_OVER_SIMT * ms <= simt_ms,
+                          f"{name} {shape}: {ms:.4f} ms, not "
+                          f"{F32_OVER_SIMT}x faster than the SIMT kernel's "
+                          f"{simt_ms:.4f} ms")
             print(line + "  (bitwise repeatable: yes)", flush=True)
     print("  mlstm_chunk has no single library call (the chunk is a decayed "
           "attention plus a matrix-memory update): library_ms null")
@@ -1663,6 +1785,15 @@ def serve_phase(arch, kernel, per_prefill, f32_cfg, per_block=False,
     print(f"  prefill logits, kernel vs plain route (f32, "
           f"{f32_cfg.n_layers} layers): max |diff| / max |logit| "
           f"{rel32:.3e}; launches {launches32}", flush=True)
+    times = {"tensor-core": [], "SIMT": []}
+    for label in ("tensor-core", "SIMT", "tensor-core", "SIMT"):
+        with simt_routes() if label == "SIMT" else contextlib.nullcontext():
+            times[label].append(prefill_ms(f32_cfg, params, prompts))
+    print(f"  f32 prefill ({f32_cfg.n_layers} layers), ms by the host clock "
+          "in turns: the f32 tensor-core kernels "
+          + ", ".join(f"{t:.2f}" for t in times["tensor-core"])
+          + "; the SIMT kernels (the f32 route before them) "
+          + ", ".join(f"{t:.2f}" for t in times["SIMT"]), flush=True)
     if per_block:
         f32_depth_check(f32_cfg, params, prompts, got, plain, tol)
     else:
@@ -1671,6 +1802,49 @@ def serve_phase(arch, kernel, per_prefill, f32_cfg, per_block=False,
     del params, got, plain
     torch.cuda.empty_cache()
     return launches, launches32
+
+
+def simt_routes():
+    """A context in which f32 flash and mLSTM calls take the SIMT kernels,
+    the f32 route before the tensor-core kernels: the "before" of an f32
+    prefill, timed beside the "after" in one run (the SIMT kernels are
+    the parent's, byte for byte)."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import mlstm_chunk as mk
+
+    @contextlib.contextmanager
+    def ctx():
+        fr, mr = flash.flash_route, mk.mlstm_route
+
+        def flash_route(dtype, hd):
+            name = fr(dtype, hd)
+            return ("flash_attention_simt" if name == "flash_attention_f32"
+                    else name)
+
+        def mlstm_route(dtype, hd, l):
+            name = mr(dtype, hd, l)
+            return "mlstm_chunk_simt" if name == "mlstm_chunk_f32" else name
+
+        flash.flash_route, mk.mlstm_route = flash_route, mlstm_route
+        try:
+            yield
+        finally:
+            flash.flash_route, mk.mlstm_route = fr, mr
+    return ctx()
+
+
+def prefill_ms(cfg, params, prompts):
+    """Host-clock ms of one prefill, the device synchronised at both
+    ends."""
+    import torch
+    from repro_torch.models import transformer as tfm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        tfm.prefill(cfg, params, prompts)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def f32_depth_check(cfg, params, prompts, got, plain, tol):
@@ -1731,19 +1905,20 @@ def llama_phase(rows):
     launches, launches32 = serve_phase("llama3-8b", "flash_attention", 32,
                                        cfg32)
     # bf16 at hd 128 runs the tensor-core kernel only (serve_phase holds
-    # the bf16 prefill to exactly {"flash_attention": 32}); f32 the SIMT
-    check(launches32 == {"flash_attention_simt": cfg32.n_layers},
+    # the bf16 prefill to exactly {"flash_attention": 32}); f32 the f32 one
+    check(launches32 == {"flash_attention_f32": cfg32.n_layers},
           f"llama3-8b f32 prefill launched {launches32}, expected "
-          f"{{'flash_attention_simt': {cfg32.n_layers}}}")
+          f"{{'flash_attention_f32': {cfg32.n_layers}}}")
     rows["flash_attention"]["launches"] = int(launches["flash_attention"])
-    rows["flash_attention_simt"]["launches"] = int(
-        launches32["flash_attention_simt"])
+    rows["flash_attention_f32"]["launches"] = int(
+        launches32["flash_attention_f32"])
 
 
 def gemma_phase(rows):
     """Phase 15: Gemma 3 12B served at full width and depth in bf16 on the
     hd-256 tensor-core kernel; its f32 copy cut to one period of the
-    pattern (five local layers, one global) on the SIMT kernel."""
+    pattern (five local layers, one global) on the f32 tensor-core
+    kernel."""
     import dataclasses as dc
     from repro_torch.configs import get_config
     from repro_torch.models.config import Stage
@@ -1756,14 +1931,15 @@ def gemma_phase(rows):
         "gemma3-12b", "flash_attention_hd256", cfg.n_layers, cfg32,
         batch=GEMMA_BATCH, prompt=GEMMA_PROMPT, focus="flash_fwd_sm90_hd256")
     # bf16 at hd 256 runs the hd-256 kernel only (serve_phase holds the
-    # bf16 prefill to exactly {"flash_attention_hd256": 48}); f32 the SIMT
-    check(launches32 == {"flash_attention_simt": len(period)},
+    # bf16 prefill to exactly {"flash_attention_hd256": 48}); f32 the f32
+    # tensor-core kernel
+    check(launches32 == {"flash_attention_f32": len(period)},
           f"gemma3-12b f32 prefill launched {launches32}, expected "
-          f"{{'flash_attention_simt': {len(period)}}}")
+          f"{{'flash_attention_f32': {len(period)}}}")
     rows["flash_attention_hd256"]["launches"] = int(
         launches["flash_attention_hd256"])
-    rows["flash_attention_simt"]["launches_phase15"] = int(
-        launches32["flash_attention_simt"])
+    rows["flash_attention_f32"]["launches_phase15"] = int(
+        launches32["flash_attention_f32"])
 
 
 def xlstm_phase(rows):
@@ -1774,13 +1950,12 @@ def xlstm_phase(rows):
     launches, launches32 = serve_phase("xlstm-125m", "mlstm_chunk", 40,
                                        cfg32, per_block=True)
     # bf16 at hd 192 runs the tensor-core kernel only (serve_phase holds
-    # the bf16 prefill to exactly {"mlstm_chunk": 40}); f32 the SIMT one
-    check(launches32 == {"mlstm_chunk_simt": 40},
+    # the bf16 prefill to exactly {"mlstm_chunk": 40}); f32 the f32 one
+    check(launches32 == {"mlstm_chunk_f32": 40},
           f"xlstm-125m f32 prefill launched {launches32}, expected "
-          "{'mlstm_chunk_simt': 40}")
+          "{'mlstm_chunk_f32': 40}")
     rows["mlstm_chunk"]["launches"] = int(launches["mlstm_chunk"])
-    rows["mlstm_chunk_simt"]["launches"] = int(
-        launches32["mlstm_chunk_simt"])
+    rows["mlstm_chunk_f32"]["launches"] = int(launches32["mlstm_chunk_f32"])
 
 
 # ---------------------------------------------------------------------------

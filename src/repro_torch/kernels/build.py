@@ -124,6 +124,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mlstm_chunk_simt.restype = i
     lib.mlstm_chunk_sm90.argtypes = [*([p] * 12), i, i, i, f, p]
     lib.mlstm_chunk_sm90.restype = i
+    lib.flash_attention_sm90_f32.argtypes = [p, p, p, p, *([i] * 8), f, p]
+    lib.flash_attention_sm90_f32.restype = i
+    lib.mlstm_chunk_sm90_f32.argtypes = [*([p] * 12), i, i, i, f, p]
+    lib.mlstm_chunk_sm90_f32.restype = i
     return lib
 
 

@@ -4,7 +4,7 @@ Counterpart of `repro/kernels/flash_attention.py` (the Pallas kernel).
 q (B,S,H,hd) and k/v (B,T,Hkv,hd), all f32 or all bf16, give the
 attention output (B,S,H,hd) in q's dtype, with the causal and
 sliding-window masks on absolute positions (see
-`ref.flash_attention_ref`, the plain version).  Two hand-written kernels
+`ref.flash_attention_ref`, the plain version).  Four hand-written kernels
 compute it, chosen by `flash_route` from the dtype and head dim alone:
 
 - "flash_attention": bf16 at head dims 64 and 128, on the tensor cores
@@ -13,9 +13,11 @@ compute it, chosen by `flash_route` from the dtype and head dim alone:
   tensor cores (`csrc/flash_attention_sm90_hd256.cu`: the same design
   with 64-key tiles and one q buffer, so that a 256-wide O accumulator
   fits the registers and the K/V ring the shared memory);
-- "flash_attention_simt": everything else (f32, where the tensor cores
-  would round to TF32, and bf16 at other head dims), on the CUDA cores
-  (`csrc/flash_attention.cu`).
+- "flash_attention_f32": f32 at head dims 64, 128 and 256, on the
+  tensor cores (`csrc/flash_attention_sm90_f32.cu`: every product as
+  three TF32 products of hi / lo halves, which keeps f32's accuracy);
+- "flash_attention_simt": everything else (f32 and bf16 at other head
+  dims), on the CUDA cores (`csrc/flash_attention.cu`).
 
 Given CUDA tensors, `flash_attention` launches the routed kernel on the
 current stream and counts the launch in `cut_eval.LAUNCHES` under the
@@ -38,10 +40,13 @@ _DTYPES = (torch.float32, torch.bfloat16)
 SM90_HEAD_DIMS = (64, 128)
 # the head dim of the second tensor-core kernel
 HD256 = 256
+# head dims of the f32 tensor-core kernel's template instances
+F32_HEAD_DIMS = (64, 128, 256)
 # the tensor-core routes and their C entries (TMA: 16-byte-aligned
 # operands)
 _TMA_ENTRIES = {"flash_attention": "flash_attention_sm90",
-                "flash_attention_hd256": "flash_attention_sm90_hd256"}
+                "flash_attention_hd256": "flash_attention_sm90_hd256",
+                "flash_attention_f32": "flash_attention_sm90_f32"}
 
 
 def flash_route(dtype, hd: int) -> str:
@@ -50,6 +55,8 @@ def flash_route(dtype, hd: int) -> str:
         return "flash_attention"
     if dtype == torch.bfloat16 and hd == HD256:
         return "flash_attention_hd256"
+    if dtype == torch.float32 and hd in F32_HEAD_DIMS:
+        return "flash_attention_f32"
     return "flash_attention_simt"
 
 

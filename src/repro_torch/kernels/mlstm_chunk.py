@@ -4,16 +4,19 @@ Counterpart of `repro/kernels/mlstm_chunk.py` (the Pallas kernel).  For
 q/k/v (B,H,L,hd) (f32 or bf16, one type), log gates li/lf (B,H,L,1) f32
 and the carried state c (B,H,hd,hd), n (B,H,1,hd), m (B,H,1,1) f32, it
 returns the chunk's y (B,H,L,hd) in q's dtype and the end-of-chunk state
-(c', n', m') in f32 (see `ref.mlstm_chunk_ref`, the plain version).  Two
-hand-written kernels compute it, chosen by `mlstm_route` from the dtype,
+(c', n', m') in f32 (see `ref.mlstm_chunk_ref`, the plain version).
+Three hand-written kernels compute it, chosen by `mlstm_route` from the dtype,
 head dim and chunk length:
 
 - "mlstm_chunk": bf16 at head dims 64, 128 and 192 and chunks of at
   most 512, on the tensor cores (`csrc/mlstm_chunk_sm90.cu`: wgmma, TMA,
   one launch; its gates live in shared memory);
-- "mlstm_chunk_simt": everything else (f32, and bf16 at other head dims
-  or longer chunks), on the CUDA cores (`csrc/mlstm_chunk.cu`, two
-  launches).
+- "mlstm_chunk_f32": f32 at the same head dims and chunk lengths, on
+  the tensor cores (`csrc/mlstm_chunk_sm90_f32.cu`: every product as
+  three TF32 products of hi / lo halves, which keeps f32's accuracy; one
+  launch);
+- "mlstm_chunk_simt": everything else (other head dims or longer
+  chunks), on the CUDA cores (`csrc/mlstm_chunk.cu`, two launches).
 
 Given CUDA tensors, `mlstm_chunk` launches the routed kernel on the
 current stream and counts the call in `cut_eval.LAUNCHES` under the
@@ -32,17 +35,24 @@ from repro_torch.kernels import cut_eval as _kern
 from repro_torch.kernels import ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# head dims of the tensor-core kernel's template instances, and the
-# longest chunk it takes (kMaxLen of csrc/mlstm_chunk_sm90.cu)
+# head dims of the tensor-core kernels' template instances, and the
+# longest chunk they take (kMaxLen of csrc/mlstm_chunk_sm90.cu and
+# csrc/mlstm_chunk_sm90_f32.cu)
 SM90_HEAD_DIMS = (64, 128, 192)
 SM90_MAX_LEN = 512
+# the tensor-core routes and their C entries
+_TMA_ENTRIES = {"mlstm_chunk": "mlstm_chunk_sm90",
+                "mlstm_chunk_f32": "mlstm_chunk_sm90_f32"}
 
 
 def mlstm_route(dtype, hd: int, l: int) -> str:
     """The kernel that CUDA tensors of this dtype, head dim and chunk
     length launch."""
-    if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS and l <= SM90_MAX_LEN:
-        return "mlstm_chunk"
+    if hd in SM90_HEAD_DIMS and l <= SM90_MAX_LEN:
+        if dtype == torch.bfloat16:
+            return "mlstm_chunk"
+        if dtype == torch.float32:
+            return "mlstm_chunk_f32"
     return "mlstm_chunk_simt"
 
 
@@ -92,13 +102,15 @@ def mlstm_chunk(q, k, v, li, lf, c, n, m):
         ptrs = [t.data_ptr() for t in (q, k, v, li, lf, c, n, m, y, c2, n2,
                                        m2)]
         args = (b * h, l, hd, 1.0 / math.sqrt(hd), _kern._stream(q))
-        if name == "mlstm_chunk":
-            # TMA and the 16-byte loads of C need 16-byte-aligned addresses
-            for nm, x in (("q", q), ("k", k), ("v", v), ("c", c)):
+        if name in _TMA_ENTRIES:
+            # TMA and the 16-byte loads of C (and, in f32, of n) need
+            # 16-byte-aligned addresses
+            for nm, x in (("q", q), ("k", k), ("v", v), ("c", c), ("n", n)):
                 if x.data_ptr() % 16:
                     raise ValueError(f"mlstm_chunk: {nm} is not 16-byte "
                                      "aligned")
-            _kern._launch(name, lib.mlstm_chunk_sm90, *ptrs, *args)
+            _kern._launch(name, getattr(lib, _TMA_ENTRIES[name]), *ptrs,
+                          *args)
         else:
             _kern._launch(name, lib.mlstm_chunk_simt, *ptrs, _kern._bf16(q),
                           *args)

@@ -374,15 +374,17 @@ def _mlstm_operands(b, h, l, hd, seed, dtype, device):
                                   (512, 64), (600, 192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mlstm_kernel_matches_plain_version(cuda, l, hd, dtype):
-    """f32, hd 8 and chunks past 512 launch the SIMT kernel; bf16 at hd
-    64 / 128 / 192 up to 512 the tensor-core kernel; both match the plain
-    version, ragged L included."""
+    """hd 8 and chunks past 512 launch the SIMT kernel; hd 64 / 128 / 192
+    up to 512 a tensor-core kernel (bf16, or f32 in three TF32 passes);
+    all match the plain version, ragged L included."""
     from repro_torch.kernels import mlstm_chunk as mk, ref
     args = _mlstm_operands(2, 3, l, hd, l + hd, dtype, cuda)
     kern.reset_launches()
     got = mk.mlstm_chunk(*args)
-    route = ("mlstm_chunk" if dtype == torch.bfloat16 and hd != 8
-             and l <= 512 else "mlstm_chunk_simt")
+    route = "mlstm_chunk_simt"
+    if hd != 8 and l <= 512:
+        route = ("mlstm_chunk" if dtype == torch.bfloat16
+                 else "mlstm_chunk_f32")
     assert mk.mlstm_route(dtype, hd, l) == route
     assert dict(kern.LAUNCHES) == {route: 1}
     assert got[0].dtype == dtype and got[0].shape == args[0].shape
@@ -408,6 +410,66 @@ def test_mlstm_tensor_core_kernel_is_bitwise_repeatable(cuda, l):
         again = mk.mlstm_chunk(*args)
         assert all(torch.equal(x, y) for x, y in zip(first, again))
     assert dict(kern.LAUNCHES) == {"mlstm_chunk": 4}
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+@pytest.mark.parametrize("b,s,t,h,hkv,hd,window,causal", [
+    (1, 77, 77, 4, 4, 128, 0, True), (2, 200, 200, 8, 2, 128, 50, True),
+    (1, 200, 77, 4, 1, 128, 0, True), (1, 200, 130, 4, 2, 64, 24, True),
+    (2, 77, 77, 8, 1, 64, 16, True), (1, 300, 300, 4, 1, 256, 100, True),
+    (1, 20, 37, 2, 1, 256, 0, True), (1, 37, 20, 2, 1, 64, 8, True),
+    (1, 1, 70, 2, 1, 256, 0, True), (2, 256, 256, 4, 2, 128, 0, False),
+    (2, 256, 200, 4, 2, 256, 0, False), (1, 130, 300, 4, 4, 64, 0, False)])
+def test_flash_f32_kernel_is_f32_grade(cuda, b, s, t, h, hkv, hd, window,
+                                       causal):
+    """f32 at hd 64 / 128 / 256 launches the 3xTF32 tensor-core kernel,
+    once a call, bitwise repeatably, within chip_smoke.F32_GRADE_TOL of
+    the plain version row by row: S > T, S < T, ragged, windows (rows with
+    no key in the window), non-causal."""
+    from repro_torch.kernels import flash_attention as flash, ref
+    cs = _chip_smoke()
+    rng = np.random.default_rng(s + t + hd + window)
+    q, k, v = (torch.tensor(_normal(rng, b, n, heads, hd)).to(cuda)
+               for n, heads in ((s, h), (t, hkv), (t, hkv)))
+    kern.reset_launches()
+    got = flash.flash_attention(q, k, v, causal=causal, window=window)
+    assert dict(kern.LAUNCHES) == {"flash_attention_f32": 1}
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert cs.row_rel_err(got, want) <= cs.F32_GRADE_TOL["flash"]
+    assert torch.equal(got, flash.flash_attention(q, k, v, causal=causal,
+                                                  window=window))
+
+
+@pytest.mark.parametrize("l,hd", [(1, 64), (1, 192), (33, 128), (100, 192),
+                                  (256, 64), (256, 192), (512, 64),
+                                  (512, 128), (512, 192)])
+def test_mlstm_f32_kernel_is_f32_grade(cuda, l, hd):
+    """f32 at hd 64 / 128 / 192 up to 512 launches the 3xTF32 tensor-core
+    kernel, once a call, bitwise repeatably, each of y, C', n' and m'
+    within chip_smoke.F32_GRADE_TOL of the plain version."""
+    from repro_torch.kernels import mlstm_chunk as mk, ref
+    cs = _chip_smoke()
+    args = _mlstm_operands(2, 3, l, hd, 7 + l + hd, torch.float32, cuda)
+    kern.reset_launches()
+    got = mk.mlstm_chunk(*args)
+    assert dict(kern.LAUNCHES) == {"mlstm_chunk_f32": 1}
+    for g, w, name in zip(got, ref.mlstm_chunk_ref(*args),
+                          ("y", "c", "n", "m")):
+        rel = float((g - w).abs().max() / w.abs().max())
+        assert rel <= cs.F32_GRADE_TOL["mlstm"], (name, rel)
+    again = mk.mlstm_chunk(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 def test_kernel_route_is_taken_on_cuda_tensors(cuda):

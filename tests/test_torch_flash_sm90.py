@@ -5,8 +5,9 @@ against the reference.
 `flash_route` picks the kernel from the dtype and head dim alone: bf16 at
 hd 64 or 128 runs on the tensor cores (`flash_attention_sm90.cu`, 128-key
 tiles), bf16 at hd 256 on the tensor cores too
-(`flash_attention_sm90_hd256.cu`, 64-key tiles), everything else on the
-SIMT kernel.  The tensor-core kernels round the probabilities P to bf16
+(`flash_attention_sm90_hd256.cu`, 64-key tiles), f32 at hd 64, 128 or 256
+on the tensor cores in three TF32 passes (`flash_attention_sm90_f32.cu`,
+tests/test_torch_flash_f32.py), everything else on the SIMT kernel.  The tensor-core kernels round the probabilities P to bf16
 before P V (the A operand of a bf16 wgmma); `_tensor_core_arithmetic`
 repeats their tiles, base-2 online softmax and roundings in PyTorch on
 the CPU, and the test holds that to the reference's Pallas kernel
@@ -45,6 +46,8 @@ def test_flash_route(dtype, hd):
         want = "flash_attention"
     elif dtype == torch.bfloat16 and hd == 256:
         want = "flash_attention_hd256"
+    elif dtype == torch.float32 and hd in (64, 128, 256):
+        want = "flash_attention_f32"
     assert flash_route(dtype, hd) == want
     assert SM90_HEAD_DIMS == (64, 128)
 

@@ -4,7 +4,9 @@ the reference.
 
 `mlstm_route` picks the kernel from the dtype, head dim and chunk length:
 bf16 at hd 64, 128 or 192 in chunks of at most 512 runs on the tensor
-cores, everything else on the SIMT kernel.  The tensor-core kernel rounds at other places than the plain
+cores, f32 there on the tensor cores in three TF32 passes
+(`mlstm_chunk_sm90_f32.cu`, tests/test_torch_mlstm_f32.py), everything
+else on the SIMT kernel.  The tensor-core kernel rounds at other places than the plain
 version: the carried state C and the weighted keys k w_k enter bf16
 products as two halves hi = bf16(x), lo = bf16(x - hi), and the decayed
 scores P are rounded to bf16 before P V while their f32 row sums form the
@@ -34,8 +36,10 @@ BF16_TOL = 6e-2
 @pytest.mark.parametrize("hd", [8, 64, 128, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mlstm_route(dtype, hd, l):
-    want = ("mlstm_chunk" if dtype == torch.bfloat16
-            and hd in (64, 128, 192) and l <= 512 else "mlstm_chunk_simt")
+    want = "mlstm_chunk_simt"
+    if hd in (64, 128, 192) and l <= 512:
+        want = ("mlstm_chunk" if dtype == torch.bfloat16
+                else "mlstm_chunk_f32")
     assert mlstm_route(dtype, hd, l) == want
     assert SM90_HEAD_DIMS == (64, 128, 192) and SM90_MAX_LEN == 512
 
