@@ -47,7 +47,7 @@ def variants(src: str) -> dict:
 
     phase0 = cut("  // phase 0: the slices on their way")
     late = cut("  // g_other and mask, needed after the barrier")
-    column = cut("  if constexpr (kOnChip) mbar_wait(bar(1), 0);")
+    column = cut("  if constexpr (kVecs) mbar_wait(bar(1), 0);")
     epilogue = cut("  // epilogue: the last block")
     return {"launch": src[:phase0] + "  return;\n" + src[phase0:],
             "phase 0": src[:late] + "  return;\n" + src[late:],
@@ -67,10 +67,10 @@ def build(name: str, text: str, nvcc: str, flags) -> ctypes.CDLL:
                    ctypes.c_float)
     lib.fused_cut_round_scratch.argtypes = [i, i]
     lib.fused_cut_round_scratch.restype = ll
-    lib.fused_cut_round_occupancy.argtypes = [i, i, ll]
+    lib.fused_cut_round_occupancy.argtypes = [i, i, ll, i]
     lib.fused_cut_round_occupancy.restype = i
-    lib.fused_cut_round.argtypes = [p, i, *([p] * 13), i, ll, i, ll, i, ll,
-                                    f, f, f, f, p]
+    lib.fused_cut_round.argtypes = [p, i, *([p] * 13), i, ll, i, ll, i, i,
+                                    ll, f, f, f, f, p]
     lib.fused_cut_round.restype = i
     return lib
 

@@ -103,11 +103,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_cut_round_scratch.restype = ll
     lib.fused_cut_round_occupancy.argtypes = [i, i, ll, i]
     lib.fused_cut_round_occupancy.restype = i
-    lib.fused_cut_round.argtypes = [p, i, *([p] * 13), i, ll, i, ll, i, ll,
-                                    f, f, f, f, p]
+    lib.fused_cut_round.argtypes = [p, i, *([p] * 13), i, ll, i, ll, i, i,
+                                    ll, f, f, f, f, p]
     lib.fused_cut_round.restype = i
     lib.fused_cut_round_runs.argtypes = [p, i, *([p] * 14), i, i, ll, i,
-                                         ll, i, ll, f, f, f, f, p]
+                                         ll, i, i, ll, f, f, f, f, p]
     lib.fused_cut_round_runs.restype = i
     for name in ("flash_attention_simt_max_head_dim",
                  "mlstm_chunk_simt_max_head_dim",

@@ -1,11 +1,17 @@
 // Pieces shared by the cut kernels (cut_kernels.cu) and the fused
 // level-2 round (inner_round.cu): operand loads that accumulate in f32
-// whatever the input type, row sums reduced in a fixed order, and the
-// ticket that elects the block which finishes a cross-block sum.
+// whatever the input type, row sums reduced in a fixed order, the ticket
+// that elects the block which finishes a cross-block sum, and the bulk
+// copies (cp.async.bulk on an mbarrier) that bring slices of rows into
+// shared memory.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -89,6 +95,74 @@ __device__ __forceinline__ int ticket_add(int* counter) {
   asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
                : "=r"(before) : "l"(counter) : "memory");
   return before;
+}
+
+// A slice src[0 : len] of T, V = 16 / sizeof(T) entries to 16 bytes: it
+// starts `mis` entries past a 16-byte boundary, then has a head of h < V
+// entries, a 16-byte-aligned body of nb and a tail of fewer than V.
+struct Span {
+  int mis, h, nb;
+};
+
+template <typename T>
+__device__ __forceinline__ Span span_of(const T* src, int len) {
+  constexpr int V = 16 / sizeof(T);
+  const int mis = static_cast<int>(
+      reinterpret_cast<uintptr_t>(src) % 16 / sizeof(T));
+  const int h = min(len, (V - mis) % V);
+  return {mis, h, (len - h) / V * V};
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t body_bytes(const T* src, int len) {
+  return static_cast<uint32_t>(span_of(src, len).nb * sizeof(T));
+}
+
+// The body of src[0 : len] to dst + mis + h (dst 16-byte aligned, so the
+// body lands 16-byte aligned) in one bulk copy completing on `bar`.
+template <typename T>
+__device__ __forceinline__ void bulk_body(T* dst, const T* src, int len,
+                                          uint32_t bar) {
+  const Span sp = span_of(src, len);
+  if (sp.nb > 0) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(smem_u32(dst + sp.mis + sp.h)), "l"(src + sp.h),
+           "r"(static_cast<uint32_t>(sp.nb * sizeof(T))), "r"(bar)
+        : "memory");
+  }
+}
+
+// Index in src[0 : len] of entry e < 2V of its head (e < V) or its tail
+// (e >= V), or -1 where the slice has no such entry.
+template <typename T>
+__device__ __forceinline__ int end_index(const T* src, int len, int e) {
+  constexpr int V = 16 / sizeof(T);
+  const Span sp = span_of(src, len);
+  const int j = e < V ? e : sp.h + sp.nb + (e - V);
+  return (e < V ? e < sp.h : j < len) ? j : -1;
+}
+
+// Entry e < 2V of the head or the tail of src[0 : len] to dst + mis,
+// where the slice has one.
+template <typename T>
+__device__ __forceinline__ void copy_end(T* dst, const T* src, int len,
+                                         int e) {
+  const int j = end_index(src, len, e);
+  if (j >= 0) dst[span_of(src, len).mis + j] = src[j];
+}
+
+// Spin until the counter reaches `target` (acquire); trap after
+// kHangCycles rather than hang.
+__device__ __forceinline__ void wait_count(const int* counter, int target) {
+  const long long start = clock64();
+  int x;
+  do {
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+                 : "=r"(x) : "l"(counter) : "memory");
+    if (clock64() - start > kHangCycles) __trap();
+  } while (x < target);
 }
 
 }  // namespace

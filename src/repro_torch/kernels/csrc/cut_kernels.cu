@@ -51,6 +51,19 @@
 // copied.  Each run takes the single-run grid and the single-run kernel
 // body on its own pointers (matvec with its own ticket and partials), so
 // row r of a batched call is bitwise the single-run kernel on run r.
+// The batched launch is bound by R times the single run's bytes, which
+// its blocks move in waves; each block's serial steps (staging v, the
+// reduction, the ticket) leave the memory idle between waves.  matvec's
+// batched body therefore fetches v's slices ahead of A's loads (a block
+// that staged v after issuing A's loads, as the single-run kernel does,
+// waited for v's bytes after A's) and fits four blocks an SM where A is
+// f32, its two 4-row sweeps sharing one staged slice of v and one
+// reduction.  A persistent launch of the resident blocks walking (run,
+// chunk) items, fed by bulk copies or cp.async into a ring of
+// shared-memory stages, pays each item's serial steps one after another
+// and measured slower than this grid on the H100
+// (benchmarks/torch_cut_runs_designs.py, benchmarks/
+// cut_matvec_runs_ring.cu).
 //
 // Each launcher returns cudaGetLastError() so the caller can raise on a
 // refused launch.  Kernels allocate nothing; the caller passes outputs
@@ -126,6 +139,29 @@ __device__ __forceinline__ void stage_v(const TV* __restrict__ v, int len,
   }
 }
 
+// 4 bytes from device memory to shared memory, asynchronously.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// vs[pad(j)] = v[j] for j < len, the values stage_v stores, in 4-byte
+// asynchronous copies (f32 v only: a copy moves 4 bytes at least), issued
+// ahead of A's loads so that they land first; cp_async_wait_all waits for
+// them.
+template <typename TV>
+__device__ __forceinline__ void fetch_v(const TV* v, int len, float* vs) {
+  if constexpr (sizeof(TV) == 4) {
+    for (int j = threadIdx.x; j < len; j += kThreads) {
+      cp_async4(vs + pad(j), v + j);
+    }
+  }
+}
+
 // The U x R 16-byte loads of A that thread-strided vector k0 starts:
 // x[u][r] is vector k0 + u kThreads of row r's body, where it has one.
 template <int R, int U, typename TA>
@@ -152,8 +188,10 @@ __device__ __forceinline__ void mv_load(uint4 (&x)[U][R],
 // the first loads of A are issued, so the two reads overlap.  Each row's
 // 16-byte-aligned body is read in 16-byte loads, U of each row in flight
 // per thread, and its head and tail (under 16 bytes each) in scalar
-// loads issued with the first vectors.
-template <int R, int U, typename TA, typename TV>
+// loads issued with the first vectors.  With kStage false the slice of v
+// is in vs already (an earlier sweep of the same columns staged it).
+template <int R, int U, bool kVFirst, typename TA, typename TV,
+          bool kStage = true>
 __device__ __forceinline__ void mv_sweep(const TA* __restrict__ a,
                                          const TV* __restrict__ v,
                                          float* vs, int p0, int nr,
@@ -172,6 +210,12 @@ __device__ __forceinline__ void mv_sweep(const TA* __restrict__ a,
     nv[r] = r < nr ? (len - h[r]) / V : 0;
     n_max = max(n_max, nv[r]);
   }
+  // (bf16 v is staged after A's loads go out, as in the single-run body)
+  constexpr bool kAsyncV = kStage && kVFirst && sizeof(TV) == 4;
+  if constexpr (kAsyncV) {
+    __syncthreads();   // the previous slice's reads of vs are done
+    fetch_v(v + s0, len, vs);
+  }
   // this thread's head and tail entries of each row (under 16 bytes of a
   // row each side of its body), loaded with the first vectors
   const int t = threadIdx.x;
@@ -185,9 +229,14 @@ __device__ __forceinline__ void mv_sweep(const TA* __restrict__ a,
   uint4 x[U][R];
   int k0 = t;
   mv_load<R, U>(x, row, h, nv, k0);
-  __syncthreads();   // the previous slice's reads of vs are done
-  stage_v(v + s0, len, vs);
-  __syncthreads();
+  if constexpr (kAsyncV) {
+    cp_async_wait_all();
+    __syncthreads();
+  } else if constexpr (kStage) {
+    __syncthreads();   // the previous slice's reads of vs are done
+    stage_v(v + s0, len, vs);
+    __syncthreads();
+  }
 #pragma unroll 1
   while (k0 < n_max) {
 #pragma unroll
@@ -217,7 +266,7 @@ __device__ __forceinline__ void mv_sweep(const TA* __restrict__ a,
 // the grid (cut_eval.py cut_grid): at most two blocks per SM, each
 // wide enough that, in the 8-row kernel, every thread has a 16-byte load
 // of each row.
-template <int R, int U, typename TA, typename TV>
+template <int R, int U, bool kVFirst, typename TA, typename TV>
 __device__ __forceinline__ void matvec_body(
     const TA* __restrict__ a, const TV* __restrict__ v,
     float* __restrict__ partial, int* __restrict__ ticket,
@@ -228,7 +277,30 @@ __device__ __forceinline__ void matvec_body(
   const int n_blocks = gridDim.x;
   const long long c0 = static_cast<long long>(blockIdx.x) * cw;
   const long long c1 = min(c0 + cw, d);
-  for (int p0 = 0; p0 < p; p0 += R) {
+  bool swept = false;
+  if constexpr (kVFirst && 2 * R == kRows) {
+    // f32 A, up to 8 rows over one slice of v: the two 4-row sweeps share
+    // the slice staged once and one reduction (each row's sum is its own,
+    // so neither changes a bit)
+    if (p <= kRows && c1 - c0 <= kMvCols) {
+      const int len = static_cast<int>(c1 - c0);
+      float acc[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+      mv_sweep<R, U, true>(a, v, vs, 0, min(R, p), d, c0, len, acc);
+      if (p > R) {
+        mv_sweep<R, U, true, TA, TV, false>(a, v, vs, R, p - R, d, c0, len,
+                                            acc + R);
+      }
+      const float s = rows_sum(acc, p, red);
+      if (threadIdx.x < p) {
+        partial[static_cast<long long>(threadIdx.x) * n_blocks
+                + blockIdx.x] = s;
+      }
+      swept = true;
+    }
+  }
+  for (int p0 = 0; p0 < p && !swept; p0 += R) {
     const int nr = min(R, p - p0);
     float acc[kRows];
 #pragma unroll
@@ -236,7 +308,7 @@ __device__ __forceinline__ void matvec_body(
     for (long long s0 = c0; s0 < c1; s0 += kMvCols) {
       const int len = static_cast<int>(min(static_cast<long long>(kMvCols),
                                            c1 - s0));
-      mv_sweep<R, U>(a, v, vs, p0, nr, d, s0, len, acc);
+      mv_sweep<R, U, kVFirst>(a, v, vs, p0, nr, d, s0, len, acc);
     }
     const float s = rows_sum(acc, nr, red);
     if (threadIdx.x < nr) {
@@ -262,24 +334,33 @@ __global__ void __launch_bounds__(kThreads, 2)
 matvec_kernel(const TA* __restrict__ a, const TV* __restrict__ v,
               float* __restrict__ partial, int* __restrict__ ticket,
               float* __restrict__ out, int p, long long d, long long cw) {
-  matvec_body<R, U>(a, v, partial, ticket, out, p, d, cw);
+  matvec_body<R, U, false>(a, v, partial, ticket, out, p, d, cw);
 }
 
 // The same for gridDim.y runs: run y reads A and v at its run strides
 // (0 for an operand the runs share) and owns row y of the (runs, P,
 // blocks) partials, ticket y and row y of the (runs, P) output, so each
-// run is the single-run kernel on its own operands, bit for bit.
+// run is the single-run kernel on its own operands, bit for bit.  Each
+// sweep copies its slice of v (f32) into shared memory asynchronously
+// before it issues its loads of A, so v's bytes travel with A's instead
+// of after them, and (f32 A) four blocks share an SM, so that one
+// block's loads are in flight while another reduces and takes its
+// ticket; to fit four, f32 A sweeps 4 rows at a time above P = 2, two
+// sweeps of one slice of v sharing its staging and the reduction (each
+// row's sum is its own, so the sweeps' width changes no bit).  bf16 A
+// keeps 8 rows a sweep and two blocks an SM (at more its rows'
+// registers spill).
 template <int R, int U, typename TA, typename TV>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, sizeof(TA) == 4 ? 4 : 2)
 matvec_runs_kernel(const TA* __restrict__ a, long long a_rs,
                    const TV* __restrict__ v, long long v_rs,
                    float* __restrict__ partial, int* __restrict__ tickets,
                    float* __restrict__ out, int p, long long d,
                    long long cw) {
   const long long y = blockIdx.y;
-  matvec_body<R, U>(a + y * a_rs, v + y * v_rs,
-                    partial + y * p * gridDim.x, tickets + y, out + y * p,
-                    p, d, cw);
+  matvec_body<R, U, true>(a + y * a_rs, v + y * v_rs,
+                          partial + y * p * gridDim.x, tickets + y,
+                          out + y * p, p, d, cw);
 }
 
 // Loads of A that vecmat reads once: through the read-only path without
@@ -555,6 +636,9 @@ cudaError_t launch_matvec_runs(const void* a, long long a_rs, const void* v,
   const dim3 grid(blocks, runs);
   if (p <= 2) {
     matvec_runs_kernel<2, 4><<<grid, kThreads, 0, stream>>>(
+        pa, a_rs, pv, v_rs, partial, tickets, out, p, d, cw);
+  } else if constexpr (sizeof(TA) == 4) {
+    matvec_runs_kernel<4, 1><<<grid, kThreads, 0, stream>>>(
         pa, a_rs, pv, v_rs, partial, tickets, out, p, d, cw);
   } else {
     matvec_runs_kernel<8, 1><<<grid, kThreads, 0, stream>>>(

@@ -23,8 +23,9 @@ On the card that is one launch of the `*_runs` kernel (counted as
 "matvec_runs" etc.), the run index a grid dimension: each run's slice
 must be contiguous, and the run stride is free, so an operand broadcast
 over the runs by `expand` (stride 0) is never copied.  Each run takes
-the single-run grid and kernel body, so row r is bitwise the single-run
-kernel on run r.  R = 1 takes the single-run kernel.
+the single-run grid and kernel body (matvec's with v's slices fetched
+ahead of A's loads), so row r is bitwise the single-run kernel on run r.
+R = 1 takes the single-run kernel.
 """
 from __future__ import annotations
 

@@ -29,11 +29,13 @@ Function around it is `ops.FusedRound`.
 R rounds at once take every operand with a leading run axis (A (R, P,
 D), the vectors (R, D), the rows (R, P); each run's slice contiguous,
 the run stride free, so an operand shared by `expand` is not copied) and
-return every output with it.  On the card that is one cooperative launch
-of the batched kernel (`LAUNCHES["fused_round_runs"]`), planned for the R
-runs together: A stays on chip only where R x blocks fit resident with
-their shared memory.  Each run is the single-run kernel at that plan's
-partition of D, bit for bit.
+return every output with it.  On the card that is one launch of the
+batched kernel (`LAUNCHES["fused_round_runs"]`), planned for the R runs
+together: A stays on chip where R x blocks fit resident with their
+shared memory, else as many of its rows as fit (`rows_on_chip`), the
+rest streamed.  Each run is the single-run kernel at that plan, bit for
+bit; the sums do not depend on where a row's bytes come from, so every
+output is the same at any plan of the same partition of D.
 """
 from __future__ import annotations
 
@@ -81,61 +83,104 @@ MAX_ROWS = 4096
 _MAX_PIECES = 32
 # a block spans at least one column per thread (256 threads)
 MIN_COLS = 256
+# where A's slice and the vectors live (the kernel's modes): all in
+# device memory; A and the vectors in shared memory; the first
+# `rows_on_chip` rows of A in shared memory, the rest and the vectors in
+# device memory
+STREAMED, ON_CHIP, PARTIAL = 0, 1, 2
 
 
 class RoundPlan(NamedTuple):
     """One launch of the round: `blocks` blocks of `cw` columns (the last
-    may be narrower), A's slices held in shared memory (`on_chip`) or
-    streamed, `smem` bytes of dynamic shared memory a block."""
+    may be narrower), A's slices and the vectors held in shared memory
+    (`on_chip`), or the first `rows_on_chip` rows of A (the rest, and the
+    vectors, streamed; 0: all streamed), `smem` bytes of dynamic shared
+    memory a block."""
     blocks: int
     cw: int
     on_chip: bool
     smem: int
+    rows_on_chip: int = 0
+
+    @property
+    def mode(self) -> int:
+        return ON_CHIP if self.on_chip else PARTIAL if self.rows_on_chip \
+            else STREAMED
 
 
 def _r16(x: int) -> int:
     return -(-x // 16) * 16
 
 
-def round_smem(p: int, cw: int, elem_size: int, on_chip: bool) -> int:
+def round_smem(p: int, cw: int, elem_size: int, on_chip: bool,
+               rows_on_chip: int = 0) -> int:
     """Dynamic shared memory of a block (the kernel's `layout_of`): the
-    mbarriers and the weights w, and on chip the slices of v, g_other,
-    mask and v_new (cw + 4 floats each) and of A's P rows (cw entries and
-    16 bytes each)."""
-    rows_per_piece = -(-p // _MAX_PIECES)
-    n_pieces = -(-p // rows_per_piece)
-    w = _r16(8 * (2 + n_pieces)) if on_chip else 0
+    weights w, and on chip the mbarriers before them and the slices of v,
+    g_other, mask and v_new (cw + 4 floats each) and of A's P rows (cw
+    entries and 16 bytes each) after; partly on chip (`rows_on_chip`
+    rows, not `on_chip`) the slices of those rows alone."""
+    w = 0
+    if on_chip:
+        rows_per_piece = -(-p // _MAX_PIECES)
+        w = _r16(8 * (2 + -(-p // rows_per_piece)))
     vec = w + _r16(4 * p)
-    if not on_chip:
-        return vec
-    return vec + 16 * (cw + 4) + p * (cw * elem_size + 16)
+    held = p if on_chip else rows_on_chip
+    return vec + (16 * (cw + 4) if on_chip else 0) \
+        + held * (cw * elem_size + 16)
 
 
 def round_plan(p: int, d: int, elem_size: int, sms: int,
-               occupancy: Callable[[bool, int], int],
+               occupancy: Callable[[int, int], int],
                runs: int = 1) -> RoundPlan:
     """The launch for `runs` rounds of A (P, D) with `elem_size`-byte
-    entries on a card of `sms` SMs, where `occupancy(on_chip, smem)` is
-    the number of blocks of that branch an SM holds with `smem` bytes (0
-    if none); `blocks` is per run.  On chip where the runs' slices fit at
-    two blocks per SM, else at one; else streaming.  Every block's slice
-    starts at a multiple of 8 columns, so the slices of v, g_other, mask
-    and v_new stay 16-byte aligned; the cooperative launch needs every
-    block of every run resident at once, so a plan that cannot be raises
-    here rather than hang the barrier."""
+    entries on a card of `sms` SMs, where `occupancy(mode, smem)` is the
+    number of blocks of that mode an SM holds with `smem` bytes (0 if
+    none); `blocks` is per run.  On chip where the runs' slices fit at
+    two blocks per SM, else at one; for several runs, else as many of
+    A's rows as fit on the same partitions; else streaming.  Every
+    block's slice starts at a multiple of 8 columns, so the slices of v,
+    g_other, mask and v_new stay 16-byte aligned; every block of every
+    run must be resident at once, so a plan that cannot be raises here
+    rather than hang the barrier."""
     if not 1 <= p <= MAX_ROWS:
         raise ValueError(f"fused_cut_round: {p} cut rows, the kernel takes "
                          f"1 to {MAX_ROWS}")
     if runs < 1:
         raise ValueError(f"fused_cut_round: {runs} runs")
-    for on_chip in (True, False):
+
+    def partition(per_sm):
+        g = min(max(1, per_sm * sms // runs), max(1, -(-d // MIN_COLS)))
+        cw = (-(-d // g) + 7) // 8 * 8
+        return -(-d // cw), cw
+
+    def resident(mode, smem, blocks):
+        return occupancy(mode, smem) * sms >= blocks * runs
+
+    for per_sm in (2, 1):
+        blocks, cw = partition(per_sm)
+        smem = round_smem(p, cw, elem_size, True)
+        if resident(ON_CHIP, smem, blocks):
+            return RoundPlan(blocks, cw, True, smem, p)
+    if runs > 1:
         for per_sm in (2, 1):
-            g = min(max(1, per_sm * sms // runs), max(1, -(-d // MIN_COLS)))
-            cw = (-(-d // g) + 7) // 8 * 8
-            blocks = -(-d // cw)
-            smem = round_smem(p, cw, elem_size, on_chip)
-            if occupancy(on_chip, smem) * sms >= blocks * runs:
-                return RoundPlan(blocks, cw, on_chip, smem)
+            blocks, cw = partition(per_sm)
+            # the most rows that fit (fewer rows, less memory)
+            lo, hi = 0, p
+            while lo < hi:
+                k = (lo + hi + 1) // 2
+                if resident(PARTIAL, round_smem(p, cw, elem_size, False, k),
+                            blocks):
+                    lo = k
+                else:
+                    hi = k - 1
+            if lo:
+                return RoundPlan(blocks, cw, False,
+                                 round_smem(p, cw, elem_size, False, lo), lo)
+    for per_sm in (2, 1):
+        blocks, cw = partition(per_sm)
+        smem = round_smem(p, cw, elem_size, False)
+        if resident(STREAMED, smem, blocks):
+            return RoundPlan(blocks, cw, False, smem)
     raise ValueError(f"fused_cut_round: no launch of {runs} x ({p}, {d}) "
                      "fits the card")
 
@@ -148,8 +193,8 @@ def _plan(device_index: int, p: int, d: int, elem_size: int,
     with torch.cuda.device(device_index):
         return round_plan(
             p, d, elem_size, sms,
-            lambda on_chip, smem: lib.fused_cut_round_occupancy(
-                int(elem_size == 2), int(on_chip), smem, int(runs > 1)),
+            lambda mode, smem: lib.fused_cut_round_occupancy(
+                int(elem_size == 2), mode, smem, int(runs > 1)),
             runs)
 
 
@@ -195,8 +240,8 @@ def fused_cut_round(a, v, g_other, mask, c, active, s, gamma, *,
     """One fused level-2 cut round -> (v_new (D,), cv1, s_new, gamma_new
     (P,)), all f32.  A is f32 or bf16; every other operand f32.  With a
     leading run axis on every operand, R rounds at once.  `plan` replaces
-    the planned launch of a single round (e.g. a batched call's, to
-    compare one run with it bit for bit)."""
+    the planned launch (e.g. a batched call's for one run, to compare the
+    two bit for bit)."""
     _check(a, {"v": v, "g_other": g_other, "mask": mask},
            {"c": c, "active": active, "s": s, "gamma": gamma})
     kw = dict(eta_z=eta_z, eta_s=eta_s, eta_dual=eta_dual, rho2=rho2)
@@ -206,16 +251,12 @@ def fused_cut_round(a, v, g_other, mask, c, active, s, gamma, *,
     ins = (v, g_other, mask, c, active, s, gamma)
     if a.dim() == 3 and a.shape[0] == 1:
         return tuple(o[None] for o in fused_cut_round(
-            a[0], *(t[0] for t in ins), **kw))
+            a[0], *(t[0] for t in ins), plan=plan, **kw))
     lib = build.load()
     p, d = a.shape[-2:]
     with torch.cuda.device(a.device):
-        if a.dim() == 2:
-            plan = plan or plan_for(a)
-            lead = ()
-        else:
-            plan = plan_for(a)
-            lead = (a.shape[0],)
+        plan = plan or plan_for(a)
+        lead = tuple(a.shape[:1]) if a.dim() == 3 else ()
         runs = a.shape[0] if lead else 1
 
         def out(n):
@@ -226,8 +267,8 @@ def fused_cut_round(a, v, g_other, mask, c, active, s, gamma, *,
             dtype=torch.float32, device=a.device)
         v_new, cv1, s_new, gamma_new = out(d), out(p), out(p), out(p)
         outs = (v_new, cv1, s_new, gamma_new)
-        shape = (p, d, plan.blocks, plan.cw, int(plan.on_chip), plan.smem,
-                 eta_z, eta_s, eta_dual, rho2, _kern._stream(a))
+        shape = (p, d, plan.blocks, plan.cw, plan.mode, plan.rows_on_chip,
+                 plan.smem, eta_z, eta_s, eta_dual, rho2, _kern._stream(a))
         if not lead:
             _kern._launch(
                 "fused_round", lib.fused_cut_round, a.data_ptr(),

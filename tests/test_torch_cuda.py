@@ -610,10 +610,15 @@ def test_curvature_through_the_cut_kernels(cuda):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("r,p,d", [(2, 8, 242_628), (3, 2, 925_590),
-                                   (4, 3, 33), (2, 13, 5001)])
+                                   (4, 3, 33), (2, 13, 5001),
+                                   (3, 8, 242_628), (5, 8, 57_366),
+                                   (8, 2, 925_590), (8, 13, 5001),
+                                   (5, 1, 10_000_000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_batched_kernels_are_the_single_run_kernels_row_by_row(cuda, r, p,
                                                                d, dtype):
+    """Up to R = 8 runs, several waves of blocks; (13, 5001) takes two row
+    groups a block and (1, 10,000,000) ten slices of v a block."""
     ops_ = [_operands(p, d, 10 * k + p, dtype, cuda) for k in range(r)]
     a, v, g, y = (torch.stack(x) for x in zip(*ops_))
     kern.reset_launches()
@@ -637,19 +642,24 @@ def test_batched_kernels_are_the_single_run_kernels_row_by_row(cuda, r, p,
         assert torch.equal(shared[k], kern.matvec(a[k], v[0]))
 
 
-@pytest.mark.parametrize("r", [2, 4])
-def test_batched_fused_round_rows_at_its_plan(cuda, r):
-    """White wine: two runs hold A on chip, four stream it; each row is
-    the single-run kernel at the batched plan's partition."""
-    rounds = [_round_operands(8, 242_628, 7 + k, torch.float32, cuda)
+@pytest.mark.parametrize("r,p,d,rows", [(2, 8, 242_628, 8),
+                                        (4, 8, 242_628, 7),
+                                        (8, 8, 242_628, 3),
+                                        (8, 2, 1_200_000, 0)])
+def test_batched_fused_round_rows_at_its_plan(cuda, r, p, d, rows):
+    """White wine: two runs hold A on chip, four hold 7 of its 8 rows,
+    eight 3; eight runs of a wider A stream it.  Each row is the single-run
+    kernel at the batched plan, and every counter is back at 0."""
+    rounds = [_round_operands(p, d, 7 + k, torch.float32, cuda)
               for k in range(r)]
     o = {k: torch.stack([x[k] for x in rounds]) for k in ROUND_ARGS}
     kw = dict(zip(("eta_z", "eta_s", "eta_dual", "rho2"), STEPS))
     plan = inner_round.plan_for(o["a"])
-    assert plan.on_chip == (r == 2)
+    assert plan.on_chip == (rows == p) and plan.rows_on_chip == rows
     kern.reset_launches()
     got = inner_round.fused_cut_round(*(o[k] for k in ROUND_ARGS), **kw)
     assert dict(kern.LAUNCHES) == {"fused_round_runs": 1}
+    assert int(kern._ticket(o["a"], r).abs().sum()) == 0
     want = inner_round.fused_cut_round_ref(*(o[k] for k in ROUND_ARGS), **kw)
     for x, y in zip(got, want):
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), **F32)
@@ -657,6 +667,7 @@ def test_batched_fused_round_rows_at_its_plan(cuda, r):
         one = inner_round.fused_cut_round(*(o[n][k] for n in ROUND_ARGS),
                                           plan=plan, **kw)
         assert all(torch.equal(x[k], y) for x, y in zip(got, one))
+        assert int(kern._ticket(o["a"]).item()) == 0
 
 
 def test_sweep_launches_only_batched_kernels(cuda):

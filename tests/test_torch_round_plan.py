@@ -132,3 +132,126 @@ def test_cut_grid_at_the_main_shapes():
     assert cut_eval.cut_grid(8, 242_628, 4, SMS) == (237, 1024)
     assert cut_eval.cut_grid(8, 242_628, 2, SMS) == (119, 2040)
     assert cut_eval.cut_grid(2, 925_590, 4, SMS) == (264, 3512)
+
+
+# ---------------------------------------------------------------------------
+# batched plans: A on chip, some of its rows, or streamed
+# ---------------------------------------------------------------------------
+
+def parent_round_plan(p, d, es, sms, occupancy):
+    """The one-run planner as it stood before batched plans could hold
+    some of A's rows: on chip at two blocks an SM, else one, else
+    streamed."""
+    for on_chip in (True, False):
+        for per_sm in (2, 1):
+            g = min(per_sm * sms, max(1, -(-d // inner_round.MIN_COLS)))
+            cw = (-(-d // g) + 7) // 8 * 8
+            blocks = -(-d // cw)
+            smem = round_smem(p, cw, es, on_chip)
+            if occupancy(on_chip, smem) * sms >= blocks:
+                return blocks, cw, on_chip, smem
+    raise ValueError
+
+
+@pytest.mark.parametrize("p,d", SHAPES)
+@pytest.mark.parametrize("es", [4, 2])
+def test_single_run_plan_is_unchanged(p, d, es):
+    """One run: the earlier plan, A wholly on chip or streamed."""
+    plan = round_plan(p, d, es, SMS, h100_occupancy)
+    assert (plan.blocks, plan.cw, plan.on_chip, plan.smem) == \
+        parent_round_plan(p, d, es, SMS, h100_occupancy)
+    assert plan.rows_on_chip == (p if plan.on_chip else 0)
+    assert plan.mode == (inner_round.ON_CHIP if plan.on_chip
+                         else inner_round.STREAMED)
+
+
+def test_two_runs_hold_a_on_chip_at_white_wine():
+    plan = round_plan(8, 242_628, 4, SMS, h100_occupancy, runs=2)
+    assert plan.on_chip and plan.rows_on_chip == 8
+    assert (plan.blocks, plan.cw) == (132, 1840)
+
+
+def test_four_runs_hold_seven_rows_at_white_wine():
+    """Four runs' A (31.1 MB) exceeds the SMs' shared memory: the plan
+    keeps the streamed partition (66 blocks a run of 3,680 columns, two
+    blocks an SM) and holds 7 of each slice's 8 rows, 103 KB a block."""
+    plan = round_plan(8, 242_628, 4, SMS, h100_occupancy, runs=4)
+    assert not plan.on_chip and plan.rows_on_chip == 7
+    assert plan.mode == inner_round.PARTIAL
+    assert (plan.blocks, plan.cw) == (66, 3680)
+    assert plan.smem == round_smem(8, 3680, 4, False, 7) == 103_184
+    assert h100_occupancy(plan.mode, plan.smem) * SMS >= 66 * 4
+
+
+def test_partial_layout():
+    # no mbarriers: w, then the rows held (cw entries and 16 bytes each)
+    assert round_smem(8, 3680, 4, False, 7) == 32 + 7 * (3680 * 4 + 16)
+    assert round_smem(8, 3680, 4, False, 0) == round_smem(8, 3680, 4, False)
+    assert round_smem(2, 7016, 2, False, 2) == 16 + 2 * (7016 * 2 + 16)
+
+
+@pytest.mark.parametrize("runs", [2, 3, 4, 5, 8])
+@pytest.mark.parametrize("p,d", [(8, 242_628), (2, 925_590), (13, 5000),
+                                 (64, 242_628), (2, 1_200_000)])
+@pytest.mark.parametrize("es", [4, 2])
+def test_batched_plan_holds_the_most_rows_that_fit(runs, p, d, es):
+    """A wholly on chip where it fits; else the streamed partition with
+    the most rows that fit resident (one more would not); every block of
+    every run resident at once."""
+    plan = round_plan(p, d, es, SMS, h100_occupancy, runs)
+    assert h100_occupancy(plan.mode, plan.smem) * SMS >= plan.blocks * runs
+    if plan.on_chip:
+        assert plan.rows_on_chip == p
+        return
+    streamed = None
+    for per_sm in (2, 1):
+        g = min(max(1, per_sm * SMS // runs),
+                max(1, -(-d // inner_round.MIN_COLS)))
+        cw = (-(-d // g) + 7) // 8 * 8
+        blocks = -(-d // cw)
+        if streamed is None and h100_occupancy(
+                inner_round.STREAMED,
+                round_smem(p, cw, es, False)) * SMS >= blocks * runs:
+            streamed = (blocks, cw)
+    k = plan.rows_on_chip
+    if k:
+        assert plan.smem == round_smem(p, plan.cw, es, False, k)
+        assert k == p or h100_occupancy(
+            inner_round.PARTIAL,
+            round_smem(p, plan.cw, es, False, k + 1)) * SMS \
+            < plan.blocks * runs
+    else:
+        assert (plan.blocks, plan.cw) == streamed
+
+
+def test_batched_plans_stream_where_no_row_fits():
+    # eight runs of 1.2M columns: a row's slice is 145 KB at two blocks an
+    # SM and 300 KB at one
+    plan = round_plan(2, 1_200_000, 4, SMS, h100_occupancy, runs=8)
+    assert (plan.on_chip, plan.rows_on_chip, plan.mode) == \
+        (False, 0, inner_round.STREAMED)
+    assert (plan.blocks, plan.cw) == (33, 36_368)
+
+
+def test_eight_runs_hold_three_rows_at_white_wine():
+    plan = round_plan(8, 242_628, 4, SMS, h100_occupancy, runs=8)
+    assert (plan.blocks, plan.cw, plan.rows_on_chip) == (33, 7360, 3)
+
+
+@pytest.mark.parametrize("p,d,es,runs,want", [
+    # domain adaptation: every row held, the vectors streamed
+    (2, 925_590, 4, 2, (132, 7016, False, 56_176, 2)),
+    (2, 925_590, 4, 4, (66, 14_032, False, 112_304, 2)),
+    # white wine in bf16: A on chip at two runs, its rows at four
+    (8, 242_628, 2, 2, (132, 1840, True, 59_184, 8)),
+    (8, 242_628, 2, 4, (66, 3680, False, 59_040, 8)),
+    # white wine in f32 at odd run counts
+    (8, 242_628, 4, 3, (88, 2760, False, 88_480, 8)),
+    (8, 242_628, 4, 5, (52, 4672, False, 112_256, 6)),
+])
+def test_batched_plan_at_the_sweep_shapes(p, d, es, runs, want):
+    """The plans the sweep engine's batched round takes at the two
+    datasets' cut shapes."""
+    plan = round_plan(p, d, es, SMS, h100_occupancy, runs)
+    assert plan == inner_round.RoundPlan(*want)
+    assert h100_occupancy(plan.mode, plan.smem) * SMS >= plan.blocks * runs
