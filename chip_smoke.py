@@ -223,6 +223,35 @@ file; exits non-zero, printing no result, without them.  Phases:
    tensor-core kernel, 6 launches, timed as phase 8's; one prefill
    profiled, with the hd-256 kernel's share of the busy time.
 
+16. The LLM training path (`repro_torch.launch.train`, after phase 14).
+   (a) xLSTM-125M at full size (bf16, 66M parameters, nothing cut) on
+   the driver's AFTO defaults (sketch r 256, N 4, per-worker batch 2,
+   sequence 129, tau 10) for 20 iterations with t_pre 10 at lr
+   TRAIN_LR: the eager engine, the chunked engine in chunks of 10, a
+   `--stream` run checkpointing every 10, and a run resumed from its
+   step-10 checkpoint; chunked bitwise eager, resumed bitwise the
+   uninterrupted streamed run, losses finite, an active cut in both
+   polytopes after every refresh, no kernel launched by a step or a
+   refresh, the validation forwards on the bf16 mLSTM kernel, whose loss
+   meets the bf16 route rule (PERF.md §2) against the plain route and an
+   f32 evaluation, and each of whose kernel calls is held to its plain
+   version on the call's inputs (ROUTE_ROW_TOL); ms per iteration and per refresh, peak
+   `torch.cuda.max_memory_allocated`, and the eager run's last two
+   iterations and its second refresh under torch.profiler.  (b) Llama-3
+   8B's widths at one layer (bf16, 1.27B parameters): four plain AdamW
+   steps (batch 2 x 2, sequence 129) and one AFTO step (N 2, batch 1,
+   sketch r 4096), finite, no kernel launched; the validation forward on
+   the bf16 flash kernel under the same rule; peak memory.  (c) Reduced
+   llama3-8b and xlstm-125m (f32) from one initial state made on the
+   CPU: 4 AFTO iterations with one refresh (t_pre 2), each stage run on
+   the card from the CPU's state before it and held to the CPU's, every
+   state leaf within its arch's and block's limit of its largest
+   magnitude (CARD_CPU_TOL; ROADMAP.md Queue 3 items 16-17), cut
+   `active` and `age` exact; and the card's own 4 iterations held to
+   the CPU's within TRAJECTORY_TOL and within TRAJECTORY_OVER_ULP x what
+   one ulp in the starting weights moves the card's.  (d) Each kernel wrapper, handed a CUDA
+   tensor that requires grad or one inside `torch.func.grad`, raises.
+
 Each phase ends with a `[clock]` line (its seconds and the script's),
 also on standard error; past WATCHDOG_S seconds every thread's stack
 goes to standard error.  The line before the nvidia-smi line is a JSON
@@ -1074,7 +1103,6 @@ def profile_call(label, fn, focus=None):
     share of the wall time, under torch.profiler; with `focus`, also the
     time and share of busy of the kernels whose name holds it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1083,6 +1111,14 @@ def profile_call(label, fn, focus=None):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(label, prof, wall_us, focus)
+
+
+def report_profile(label, prof, wall_us, focus=None):
+    """`profile_call`'s report of a finished torch.profiler session that
+    spanned `wall_us` of wall time."""
+    from torch.autograd import DeviceType
+
     # the profiler's raw records: `prof.events()` would build a Python
     # tree of every host op first, 20-30 s for 20 AFTO iterations
     by_name = {}
@@ -2182,8 +2218,8 @@ SWEEP_SHAPES = ((2,) + MAIN_SHAPE, (4,) + MAIN_SHAPE, (2,) + DA_SHAPE)
 # the single-run reference cycles four copies that mostly stay in L2, and
 # its time alone varied by 8% between runs, so matvec's gate there sits
 # at 0.73.  At R = 2 the round keeps the earlier kernel's plan: no gate.
-RUNS_GATES = {"matvec_runs": {2: 0.7, 4: 0.73},
-              "fused_round_runs": {4: 0.72}}
+RUNS_GATES = {"matvec_runs": {2: 0.7, 4: 0.57},
+              "fused_round_runs": {4: 0.65}}
 # a swept row against the serial scan run of its method and seed
 SWEEP_RTOL = 1e-4
 # Table 2's two seeds, each way; the swept-against-looped record
@@ -2268,6 +2304,15 @@ def one_launch(name, fn):
         f"{calls[0]}; no device record in three sessions"
 
 
+def single_copies(copies, r):
+    """(copy, run) pairs over every run of every batched copy: the
+    single-run kernel's reference cycles R times as many distinct
+    operands as the batched call, so they too span twice the L2 cache
+    and are read from device memory (run 0 of each copy alone stayed
+    largely in L2 at R = 4)."""
+    return [(c, k) for c in copies for k in range(r)]
+
+
 def runs_gate(name, dname, r, p, d, ms, single_ms):
     """Fail where a batched kernel at white wine, f32, takes more than its
     RUNS_GATES share of R x the single-run kernel's time."""
@@ -2319,7 +2364,8 @@ def batched_kernel_phase(rows):
                       f"{label}: a shared operand changed a row")
                 kernel = one_launch(name, lambda: kern(o))
                 ms = median_ms(kern, copies)
-                single_ms = median_ms(lambda c: single(c, 0), copies)
+                single_ms = median_ms(lambda ck: single(*ck),
+                                      single_copies(copies, r))
                 plain_ms = median_ms(plain, copies)
                 lib_ms = median_ms(lib, copies) \
                     if dtype == torch.float32 else None
@@ -2482,7 +2528,8 @@ def batched_round_phase(rows):
               f"{label} not bitwise repeatable")
         kernel = one_launch("fused_round_runs", lambda: kern(o))
         ms = median_ms(kern, copies)
-        single_ms = median_ms(lambda c: single(c, 0), copies)
+        single_ms = median_ms(lambda ck: single(*ck),
+                              single_copies(copies, r))
         plain_ms = median_ms(plain, copies)
         nbytes, flops = round_work({"a": o["a"][0]})
         bound, bound_by = bound_of(r * nbytes, r * flops / F32_FLOP_PER_S)
@@ -3877,6 +3924,645 @@ def mesh_phase(rows, ww_ms, ww_specs):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the LLM training path
+# ---------------------------------------------------------------------------
+
+TRAIN_ITERATIONS, TRAIN_T_PRE, TRAIN_CHUNK = 20, 10, 10
+# at the driver's lr (3e-3) plain SGD on xLSTM-125M's gate weights
+# (gradients up to 3.4e3 in the first steps) drives an mLSTM stabiliser
+# below -88.7 by the third step at full width: the normaliser's
+# exp(-m) overflows and its backward gives NaN, the reference's math
+# (ROADMAP.md Queue 3 item 17); so the phase takes 1e-5
+TRAIN_LR = 1e-5
+# card against CPU (16 (c)): each stage (a step, the refresh) run on the
+# card from the CPU's state before it, every leaf's max |card - CPU| /
+# max |CPU| within its limit: the five cut blocks derived through the
+# bf16 perturbation (cuts/b2, cuts/b3, cuts_i/a2) or equal to one
+# rollout step's move, a difference of nearly equal numbers (cuts_i/a3 =
+# 2 (z3 - z3_k), cuts_i/b3 = 2 (X3 - X3_k)), each within its own limit,
+# every other leaf within "rest" (ROADMAP.md Queue 3 items 16 and 17,
+# tests/test_torch_trilevel_llm.py).  Each limit is about three times
+# the stage's reading on an NVIDIA H100 80GB HBM3 (in brackets), and a
+# fault reads far beyond it: dropping the second-order terms moves
+# cuts/b3 and cuts_i/a2 by 1.0
+CARD_CPU_TOL = {
+    # [2.3e-4 - 4.7e-4, 1.7e-5, 2.0e-4 - 2.4e-4, 9.0e-8, 3.0e-4;
+    #  7.7e-5 - 8.2e-5]
+    "llama3-8b": {"cuts/b2": 1e-3, "cuts/b3": 1e-4, "cuts_i/a2": 1e-3,
+                  "cuts_i/a3": 1e-4, "cuts_i/b3": 1e-3, "rest": 1e-4},
+    # [2.5e-3, 2.7e-3, 3.9e-3, 9.0e-8, 5.3e-4; 8.7e-4 - 1.3e-3]
+    "xlstm-125m": {"cuts/b2": 1e-2, "cuts/b3": 1e-2, "cuts_i/a2": 1e-2,
+                   "cuts_i/a3": 1e-4, "cuts_i/b3": 2e-3, "rest": 3e-3},
+}
+# ... and the card's own 4-iteration trajectory against the CPU's: its
+# worst leaf within TRAJECTORY_TOL, about twice the reading (llama3-8b
+# 2.3e-4 - 4.7e-4, reduced xLSTM 1.4e-1 on a zero-initialised norm
+# scale), and
+# within TRAJECTORY_OVER_ULP x the worst leaf of the witness, the card's
+# trajectory from weights one ulp up against its own (4.7e-4 and 1.1e-1:
+# one ulp in the starting weights moves the trajectory as far as the
+# card's arithmetic does; ROADMAP.md Queue 3 item 17)
+TRAJECTORY_TOL = {"llama3-8b": 1e-3, "xlstm-125m": 3e-1}
+TRAJECTORY_OVER_ULP = 3.0
+TRAIN_PHASE_S = 120.0
+
+
+def train_args(*argv, **kw):
+    """The training driver's namespace: its defaults, `argv`, then `kw`."""
+    from repro_torch.launch import train
+
+    args = train.parser().parse_args(list(argv))
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+class TrainMeter:
+    """Wraps the training driver's step and refresh (the names it calls):
+    the device synchronised around each, their ms, the kernels they
+    launch (there must be none: they differentiate the plain math), and
+    after each refresh the count of active cuts in both polytopes."""
+
+    def __init__(self, profile_steps=()):
+        self.step_ms, self.refresh_ms, self.launches = [], [], 0
+        self.cuts_after_refresh = []
+        # steps (by count, from 0) run under torch.profiler, with the
+        # refresh that follows the last of them: (profiler, wall_us)
+        self.profile_steps, self.profiled = tuple(profile_steps), None
+        self._prof = None
+
+    @contextlib.contextmanager
+    def installed(self):
+        import torch
+        from repro_torch.kernels import cut_eval as K
+        from repro_torch.launch import train
+
+        step0, refresh0 = train.afto_llm_step, train.cut_refresh_llm
+
+        from torch.profiler import ProfilerActivity, profile
+
+        def timed(fn, out_ms):
+            def call(*a):
+                torch.cuda.synchronize()
+                before = sum(K.LAUNCHES.values())
+                t0 = time.perf_counter()
+                out = fn(*a)
+                torch.cuda.synchronize()
+                out_ms.append((time.perf_counter() - t0) * 1e3)
+                self.launches += sum(K.LAUNCHES.values()) - before
+                return out
+            return call
+
+        def step(*a):
+            if self.profile_steps and \
+                    len(self.step_ms) == self.profile_steps[0]:
+                torch.cuda.synchronize()
+                # device activity only: host-op records of ~200,000 ops
+                # would double the window's wall time
+                self._prof = profile(activities=[ProfilerActivity.CUDA])
+                self._prof.__enter__()
+                self._t0 = time.perf_counter()
+            return timed(step0, self.step_ms)(*a)
+
+        def refresh(*a):
+            st = timed(refresh0, self.refresh_ms)(*a)
+            self.cuts_after_refresh.append(
+                (int(st.cuts.active.sum()), int(st.cuts_i.active.sum())))
+            if self._prof is not None:
+                wall_us = (time.perf_counter() - self._t0) * 1e6
+                self._prof.__exit__(None, None, None)
+                self.profiled, self._prof = (self._prof, wall_us), None
+            return st
+
+        train.afto_llm_step = step
+        train.cut_refresh_llm = refresh
+        try:
+            yield self
+        finally:
+            train.afto_llm_step, train.cut_refresh_llm = step0, refresh0
+
+
+def states_bitwise(label, got, want):
+    import torch
+    from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
+
+    names = ["/".join(str(e[0]) for e in p)
+             for p, _ in tree_leaves_with_path(want)]
+    diff = [n for n, a, b in zip(names, tree_leaves(got), tree_leaves(want))
+            if a.dtype != b.dtype or not torch.equal(a, b)]
+    check(not diff, f"{label}: leaves differ bitwise: {diff[:6]}")
+
+
+def histories_equal(label, got, want):
+    strip = lambda h: [{k: v for k, v in r.items() if k != "host_s"}
+                       for r in h]
+    check(strip(got) == strip(want),
+          f"{label}: histories differ: {strip(got)} vs {strip(want)}")
+
+
+def finite_losses(label, history):
+    check(all(np.isfinite(h["loss"]) for h in history),
+          f"{label}: a loss is not finite: {history}")
+
+
+@contextlib.contextmanager
+def kernel_calls():
+    """Records every call of `ops.mlstm_chunk` and `ops.flash_attention`
+    that the model makes inside the block: (name, args, kwargs, output)."""
+    from repro_torch.kernels import ops
+
+    calls, saved = [], {}
+    for name in ("mlstm_chunk", "flash_attention"):
+        fn = saved[name] = getattr(ops, name)
+
+        def rec(*a, _fn=fn, _name=name, **kw):
+            out = _fn(*a, **kw)
+            calls.append((_name, a, kw, out))
+            return out
+        setattr(ops, name, rec)
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+# a kernel call of a bf16 validation forward (16 (a), (b)) against its
+# plain version on the call's inputs: the output's `row_rel_err` (per
+# query row; an mLSTM row's near-zero entries sit beside entries 100x
+# larger, so an elementwise limit fails on bf16 rounding of the large
+# ones: xLSTM-125M's call 4 read 0.069 at an entry of 0.073 in a row of
+# 20, 5.6e-3 of the row from an f64 evaluation where the plain route
+# reads 3.9e-3; on an NVIDIA H100 80GB HBM3), the mLSTM's f32 state at
+# MLSTM_TOL, the flash output also at FLASH_TOL.  The kernels read at
+# most 7.8e-3; a key tile dropped from the mLSTM (`mlstm_tile_fault`)
+# must read beyond the limit (phase 7 plants flash's faults)
+ROUTE_ROW_TOL = {"mlstm_chunk": 2e-2, "flash_attention": FLASH_ROW_TOL}
+
+
+def mlstm_tile_fault(a):
+    """The plain mLSTM chunk on a call's inputs `a` with a planted fault:
+    the 16 keys before the chunk's middle dropped (their input gates at
+    -inf), as a kernel that skipped a key tile would; its y."""
+    from repro_torch.kernels import ops
+
+    li = a[3].clone()
+    mid = li.shape[2] // 2
+    li[:, :, mid - 16:mid] = -np.inf
+    return ops.mlstm_chunk(*a[:3], li, *a[4:], impl="ref")[0]
+
+
+def route_calls_check(label, calls):
+    """Phases 7 and 9's kernel checks at the shapes and values of a
+    forward: each kernel call's outputs against its plain version on the
+    same inputs (`ROUTE_ROW_TOL`), and for the mLSTM a planted fault
+    (`mlstm_tile_fault`) that must read beyond the limit.  Returns the
+    worst row_rel_err and the worst RMS relative difference of the first
+    output, and the least row_rel_err of a planted fault (inf if none)."""
+    from repro_torch.kernels import ops
+
+    worst = rms = 0.0
+    fault_min = np.inf
+    for i, (name, a, kw, out) in enumerate(calls):
+        kw = dict(kw, impl="ref")
+        want = getattr(ops, name)(*a, **kw)
+        got, want = (out, want) if name == "mlstm_chunk" \
+            else ((out,), (want,))
+        dname = str(got[0].dtype).split(".")[-1]
+        row = row_rel_err(got[0], want[0])
+        tol = ROUTE_ROW_TOL[name]
+        tol = tol[dname] if isinstance(tol, dict) else tol
+        check(row <= tol, f"{label}: call {i} of {name} against its plain "
+              f"version at the forward's inputs: row_rel_err {row:.3e} "
+              f"(gate {tol})")
+        if name == "mlstm_chunk":     # the state is f32 on both routes
+            pairs, lim = list(zip(got[1:], want[1:])), MLSTM_TOL["float32"]
+        else:
+            pairs, lim = [(got[0], want[0])], FLASH_TOL[dname]
+        try:
+            for x, y in pairs:
+                close(x, y, lim, lim)
+        except AssertionError as e:
+            fail(f"{label}: call {i} of {name} against its plain version "
+                 f"at the forward's inputs: {e}")
+        if name == "mlstm_chunk":
+            fault = row_rel_err(mlstm_tile_fault(a), want[0])
+            check(fault > tol, f"{label}: call {i}: a planted fault (a "
+                  f"key tile dropped) reads {fault:.3e}, within the gate "
+                  f"{tol}: the check cannot see it")
+            fault_min = min(fault_min, fault)
+        g, w = got[0].float(), want[0].float()
+        worst = max(worst, row)
+        rms = max(rms, float((g - w).pow(2).mean().sqrt()
+                             / w.pow(2).mean().sqrt()))
+    return worst, rms, fault_min
+
+
+def loss_route_check(label, cfg, params, tokens):
+    """The validation loss on the kernel route (bf16) held to the plain
+    route by the bf16 rule of PERF.md §2: within DISTANCE_FACTOR x the
+    plain route's distance from an f32 evaluation of the same weights
+    plus BF16_FLOOR, and within 5e-2 of the plain route (relative).  The
+    loss of an untrained model barely depends on its mixer, so every
+    kernel call of the forward is also held to its plain version on the
+    call's own inputs (`route_calls_check`).  Returns the kernel route's
+    launches."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.kernels import cut_eval as K
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_map
+
+    with torch.no_grad():
+        K.reset_launches()
+        with kernel_calls() as calls:
+            got = float(tfm.train_loss(cfg, params, tokens, impl=None))
+        launches = dict(K.LAUNCHES)
+        per_call, per_rms, fault = route_calls_check(label, calls)
+        del calls
+        plain = float(tfm.train_loss(cfg, params, tokens, impl="ref"))
+        wide = tree_map(lambda a: a.float(), params)
+        f32 = float(tfm.train_loss(dc.replace(cfg, dtype="float32"), wide,
+                                   tokens, impl="ref"))
+        del wide
+    torch.cuda.empty_cache()
+    d_k, d_p = abs(got - f32) / abs(f32), abs(plain - f32) / abs(f32)
+    rel_kp = abs(got - plain) / abs(plain)
+    print(f"  {label} validation loss: kernel route {got:.6f} (launches "
+          f"{launches}), plain route {plain:.6f}, f32 evaluation {f32:.6f};"
+          f" relative distance from f32: kernel {d_k:.3e}, plain {d_p:.3e} "
+          f"(gate {DISTANCE_FACTOR} x plain + {BF16_FLOOR}); kernel vs "
+          f"plain {rel_kp:.3e} (gate 5e-2); each kernel call against its "
+          f"plain version on its inputs: worst row_rel_err of the output "
+          f"{per_call:.3e} (gate {ROUTE_ROW_TOL}), worst RMS relative "
+          f"difference {per_rms:.3e}"
+          + (f", a planted fault at least {fault:.3e}"
+             if np.isfinite(fault) else ""), flush=True)
+    check(np.isfinite(got) and np.isfinite(plain),
+          f"{label}: validation loss not finite")
+    check(d_k <= DISTANCE_FACTOR * d_p + BF16_FLOOR,
+          f"{label}: the kernel route's loss is {d_k:.3e} from the f32 "
+          f"evaluation, the plain route's {d_p:.3e}")
+    check(rel_kp <= 5e-2, f"{label}: the routes' losses differ by "
+          f"{rel_kp:.3e}")
+    return launches
+
+
+def xlstm_training(tmp, launches):
+    """16 (a): xLSTM-125M at full size, the driver's AFTO defaults."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cut_eval as K
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import tree_index
+
+    cfg = get_config("xlstm-125m")
+    base = ("--steps", str(TRAIN_ITERATIONS), "--t-pre", str(TRAIN_T_PRE),
+            "--log-every", str(TRAIN_CHUNK), "--lr", str(TRAIN_LR))
+    args0 = train_args(*base)
+    _, state0, _, _ = train._afto_setup(cfg, args0)
+    n_params = sum(x.numel() for x in train.tree_leaves(state0.z3))
+    print(f"  xLSTM-125M: {n_params:,} parameters ({cfg.dtype}), N "
+          f"{args0.workers}, per-worker batch {args0.batch}, sequence "
+          f"{args0.seq}, sketch r {args0.sketch_r}, tau {args0.tau}, "
+          f"t_pre {TRAIN_T_PRE}, lr {TRAIN_LR}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    # the eager run's last two steps and its second refresh run under
+    # torch.profiler (their times are left out of the means)
+    prof_steps = (TRAIN_ITERATIONS - 2, TRAIN_ITERATIONS - 1)
+    meter = TrainMeter(profile_steps=prof_steps)
+    runs = {}
+    K.reset_launches()
+    with meter.installed():
+        runs["eager"] = train.run_afto(cfg, train_args(*base,
+                                                       "--engine", "eager"),
+                                       state=state0)
+        n_eager = len(meter.step_ms), len(meter.refresh_ms)
+        runs["chunked"] = train.run_afto(
+            cfg, train_args(*base, "--scan-chunk", str(TRAIN_CHUNK)),
+            state=state0)
+        full, part = f"{tmp}/stream_full", f"{tmp}/stream_resumed"
+        stream = (*base, "--stream", "--scan-chunk", str(TRAIN_CHUNK),
+                  "--ckpt-every", str(TRAIN_CHUNK))
+        runs["streamed"] = train.run_afto(
+            cfg, train_args(*stream, "--ckpt-dir", full), state=state0)
+        shutil.copytree(f"{full}/step_{TRAIN_CHUNK:08d}",
+                        f"{part}/step_{TRAIN_CHUNK:08d}")
+        runs["resumed"] = train.run_afto(
+            cfg, train_args(*stream, "--ckpt-dir", part, "--resume"),
+            state=state0)
+    total = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    states_bitwise("16 (a) chunked against eager", runs["chunked"]["state"],
+                   runs["eager"]["state"])
+    histories_equal("16 (a) chunked against eager",
+                    runs["chunked"]["history"], runs["eager"]["history"])
+    states_bitwise("16 (a) resumed against uninterrupted (--stream)",
+                   runs["resumed"]["state"], runs["streamed"]["state"])
+    check(runs["resumed"]["history"] == [] or
+          runs["resumed"]["history"][-1]["loss"]
+          == runs["streamed"]["history"][-1]["loss"],
+          "16 (a) resumed run's last loss differs")
+    for name, out in runs.items():
+        finite_losses(f"16 (a) {name}", out["history"])
+    check(all(a >= 1 and b >= 1 for a, b in meter.cuts_after_refresh),
+          f"16 (a) a polytope without an active cut after a refresh: "
+          f"{meter.cuts_after_refresh}")
+    check(meter.launches == 0, f"16 (a): training steps and refreshes "
+          f"launched {meter.launches} kernels")
+    check(total.get("mlstm_chunk", 0) > 0,
+          f"16 (a): the validation forwards launched {total}")
+    # timed means: every step and refresh of the four runs but the first
+    # of each (the process's warm-up) and the profiled ones
+    steps = [ms for i, ms in enumerate(meter.step_ms)
+             if i not in prof_steps and i != 0]
+    refreshes = [ms for i, ms in enumerate(meter.refresh_ms)
+                 if i not in (0, n_eager[1] - 1)]
+    ms_it, ms_ref = float(np.mean(steps)), float(np.mean(refreshes))
+    print(f"  16 (a) runs: eager, chunks of {TRAIN_CHUNK}, --stream with a "
+          f"checkpoint every {TRAIN_CHUNK}, and resumed from step "
+          f"{TRAIN_CHUNK}: chunked bitwise eager, resumed bitwise "
+          f"uninterrupted; losses "
+          + ", ".join(f"{k} {[round(h['loss'], 4) for h in v['history']]}"
+                      for k, v in runs.items())
+          + f"; active cuts (II, I) after each refresh "
+          f"{meter.cuts_after_refresh}", flush=True)
+    print(f"  16 (a) launches: steps and refreshes {meter.launches} "
+          f"({len(meter.step_ms)} steps, {len(meter.refresh_ms)} refreshes"
+          f"); validation forwards {total}", flush=True)
+    print(f"  16 (a) ms per iteration {ms_it:.1f} (mean of {len(steps)} "
+          f"steps of the four runs; the first {meter.step_ms[0]:.1f}), ms per"
+          f" refresh {ms_ref:.1f} (mean of {len(refreshes)}; the first "
+          f"{meter.refresh_ms[0]:.1f}); peak torch.cuda.max_memory_allocated "
+          f"{peak:.2f} GiB", flush=True)
+    check(meter.profiled is not None, "16 (a): the profiled window ran no "
+          "refresh")
+    report_profile("16 (a) xLSTM-125M, eager steps 19-20 and the refresh "
+                   "at step 20", *meter.profiled)
+    for k, v in total.items():
+        launches[k] = launches.get(k, 0) + v
+    # the bf16 rule on the last validation batch of the eager run
+    w0 = tree_index(runs["eager"]["state"].X3, 0)
+    from repro_torch.data.synthetic import make_token_stream
+    toks = torch.as_tensor(make_token_stream(
+        cfg.vocab_size, args0.workers * args0.batch, args0.seq,
+        seed=args0.seed * 7919 + TRAIN_ITERATIONS - 1),
+        device="cuda")[:args0.batch]
+    route = loss_route_check("16 (a) xLSTM-125M", cfg, w0, toks)
+    check(route.get("mlstm_chunk", 0) > 0,
+          f"16 (a): the validation forward launched {route}")
+    del runs, state0
+    torch.cuda.empty_cache()
+    return ms_it, ms_ref, peak
+
+
+def llama_training(launches):
+    """16 (b): Llama-3 8B's widths at one layer."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.kernels import cut_eval as K
+    from repro_torch.launch import train
+    from repro_torch.models.config import BlockSpec, uniform_stages
+    from repro_torch.utils.tree import tree_index
+
+    cfg = dc.replace(get_config("llama3-8b"), n_layers=1,
+                     stages=uniform_stages(1, BlockSpec())).validate()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    plain = train.run_plain(cfg, train_args(
+        "--arch", "llama3-8b", "--mode", "plain", "--steps", "4",
+        "--workers", "2", "--batch", "2", "--seq", "129", "--log-every", "1",
+        "--lr", str(TRAIN_LR)))
+    finite_losses("16 (b) plain AdamW", plain["history"])
+    plain_losses = [round(h["loss"], 4) for h in plain["history"]]
+    check(sum(K.LAUNCHES.values()) == 0,
+          f"16 (b) plain steps launched {dict(K.LAUNCHES)}")
+    peak_plain = torch.cuda.max_memory_allocated() / 2 ** 30
+    del plain
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = train_args("--workers", "2", "--batch", "1", "--seq", "129",
+                      "--sketch-r", "4096", "--lr", str(TRAIN_LR))
+    hyper, state, _, _ = train._afto_setup(cfg, args)
+    toks = torch.as_tensor(make_token_stream(cfg.vocab_size, 2, 129),
+                           device="cuda").reshape(2, 1, 129)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train.afto_llm_step(cfg, hyper, state,
+                                {"tokens": toks, "val_tokens": toks},
+                                torch.ones(2, device="cuda"))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    check(sum(K.LAUNCHES.values()) == 0,
+          f"16 (b) the AFTO step launched {dict(K.LAUNCHES)}")
+    bad = [k for k, x in enumerate(train.tree_leaves(state))
+           if x.is_floating_point() and not bool(torch.isfinite(x).all())]
+    check(not bad, f"16 (b) AFTO step: non-finite leaves {bad[:5]}")
+    peak_afto = torch.cuda.max_memory_allocated() / 2 ** 30
+    route = loss_route_check("16 (b) Llama-3 8B widths, one layer", cfg,
+                             tree_index(state.X3, 0), toks[0])
+    check(route.get("flash_attention", 0) > 0,
+          f"16 (b): the validation forward launched {route}")
+    for k, v in route.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"  16 (b) Llama-3 8B widths at one layer "
+          f"({sum(x.numel() for x in train.tree_leaves(state.z3)):,} "
+          f"parameters, bf16): 4 AdamW steps at batch 2 x 2, sequence 129, "
+          f"losses {plain_losses}, peak {peak_plain:.2f} GiB; one AFTO step "
+          f"(N 2, batch 1, "
+          f"sketch r 4096) {step_ms:.1f} ms, peak {peak_afto:.2f} GiB; "
+          "the refresh at this width waits for the dryrun slice "
+          "(ROADMAP.md Queue 1, item 9)", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return peak_plain, peak_afto
+
+
+def leaf_diffs(got, want, exact_ints=True):
+    """[(name, max |got - want| / max |want|)] over the floating leaves
+    of two states; cut active / age must be exact (with exact_ints)."""
+    import torch
+    from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
+
+    out = []
+    for (path, g), w in zip(tree_leaves_with_path(got), tree_leaves(want)):
+        name = "/".join(str(e[0]) for e in path)
+        g, w = g.cpu().double(), w.cpu().double()
+        if name.endswith(("active", "age")):
+            check(not exact_ints or torch.equal(g, w),
+                  f"16 (c): {name} differs")
+            continue
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        out.append((name, float((g - w).abs().max()) / scale
+                    if scale else 0.0))
+    return out
+
+
+def stage_diffs(arch, label, got, want, worst):
+    """Fail unless every leaf of the card's state `got` is within its
+    arch's limit of the CPU's `want` (cut active / age exact); the worst
+    reading of each cut block and of the rest goes into `worst`."""
+    for name, err in leaf_diffs(got, want):
+        block = "/".join(name.split("/")[:2])
+        kind = block if block in CARD_CPU_TOL[arch] else "rest"
+        tol = CARD_CPU_TOL[arch][kind]
+        check(err <= tol, f"16 (c) {arch} {label}: {name} at {err:.3e} of "
+              f"its largest magnitude (gate {tol})")
+        if err > worst.get((arch, kind), (0.0, ""))[0]:
+            worst[(arch, kind)] = (err, name)
+
+
+def card_against_cpu():
+    """16 (c): reduced llama3-8b and xlstm-125m (f32), one initial state
+    made on the CPU, 4 AFTO iterations with one refresh (the driver's
+    batches and schedule, t_pre 2) on the CPU.  Each stage (a step, the
+    refresh) also runs on the card from the CPU's state before it, and
+    its result is held to the CPU's (`CARD_CPU_TOL`); and the card runs
+    the 4 iterations from the initial state on its own, whose end is
+    held to the CPU's end (`TRAJECTORY_TOL`), and no farther from it
+    than TRAJECTORY_OVER_ULP x its own trajectory from weights one ulp
+    up."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import tree_map
+
+    worst, n_stages, traj = {}, 0, {}
+    for arch in ("llama3-8b", "xlstm-125m"):
+        cfg = reduced(get_config(arch))
+        args = train_args("--steps", "4", "--t-pre", "2", "--t1", "2",
+                          "--workers", "4", "--batch", "2", "--seq", "33",
+                          "--sketch-r", "128", "--lr", str(TRAIN_LR),
+                          device="cpu")
+        hyper, cpu, sched, _ = train._afto_setup(cfg, args)
+        own = tree_map(lambda x: x.to("cuda"), cpu)
+        # the witness: the card's trajectory from weights one ulp up
+        up = lambda x: torch.nextafter(x, torch.full_like(x, np.inf))
+        nudged = dataclasses.replace(own, X3=tree_map(up, own.X3),
+                                     z3=tree_map(up, own.z3))
+        n, b, sq = args.workers, args.batch, args.seq
+        for it in range(args.steps):
+            toks = torch.as_tensor(make_token_stream(
+                cfg.vocab_size, n * b, sq, seed=args.seed * 7919 + it)) \
+                .reshape(n, b, sq)
+            batch = {"tokens": toks, "val_tokens": toks}
+            on_card = tree_map(lambda x: x.to("cuda"), batch)
+            mask = torch.as_tensor(sched.next_active()[0])
+            stages = [("step", lambda st, bt, m: train.afto_llm_step(
+                cfg, hyper, st, bt, m))]
+            if (it + 1) % args.t_pre == 0 and it < args.t1:
+                stages.append(("refresh", lambda st, bt, m:
+                               train.cut_refresh_llm(cfg, hyper, st, bt)))
+            for label, stage in stages:
+                card = stage(tree_map(lambda x: x.to("cuda"), cpu),
+                             on_card, mask.to("cuda"))
+                own = stage(own, on_card, mask.to("cuda"))
+                nudged = stage(nudged, on_card, mask.to("cuda"))
+                cpu = stage(cpu, batch, mask)
+                stage_diffs(arch, f"iteration {it} {label}", card, cpu,
+                            worst)
+                n_stages += 1
+        check(float(cpu.cuts.active.sum()) >= 1 and
+              float(cpu.cuts_i.active.sum()) >= 1,
+              f"16 (c) {arch}: a polytope without an active cut")
+        diffs = sorted(leaf_diffs(own, cpu), key=lambda x: -x[1])
+        ulp = dict(leaf_diffs(nudged, own, exact_ints=False))
+        worst_ulp = max(ulp.items(), key=lambda x: x[1])
+        traj[arch] = ([(n, v, ulp[n]) for n, v in diffs[:3]], worst_ulp)
+    print(f"  16 (c) card against CPU, {n_stages} stages (4 iterations and a"
+          " refresh each arch, each stage from the CPU's state), worst leaf"
+          " error / its largest magnitude: " + ", ".join(
+              f"{a} {k} {v:.3e} ({n})" for (a, k), (v, n)
+              in sorted(worst.items()))
+          + f" (gates: {CARD_CPU_TOL}); the card's own trajectory against "
+          "the CPU's after 4 iterations, the three worst leaves (beside "
+          "each, how far the card's trajectory from weights one ulp up "
+          "ends from its own; then that witness's worst leaf): "
+          + "; ".join(f"{a} " + ", ".join(
+              f"{n} {v:.3e} (one ulp: {u:.3e})" for n, v, u in d)
+              + f"; one ulp's worst {w[0]} {w[1]:.3e}"
+              for a, (d, w) in traj.items())
+          + f" (gates: {TRAJECTORY_TOL})", flush=True)
+    for arch, (d, w) in traj.items():
+        name, err, _ = d[0]
+        check(err <= TRAJECTORY_TOL[arch], f"16 (c) {arch}: the card's own "
+              f"4 iterations end with {name} at {err:.3e} of the CPU's "
+              f"largest magnitude (gate {TRAJECTORY_TOL[arch]})")
+        check(err <= TRAJECTORY_OVER_ULP * w[1], f"16 (c) {arch}: the "
+              f"card's trajectory strays {err:.3e} from the CPU's, more than "
+              f"{TRAJECTORY_OVER_ULP} x one ulp's {w[1]:.3e}")
+
+
+def guard_check():
+    """16 (d): each kernel wrapper, handed a CUDA tensor that a gradient
+    can flow through, raises."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm_chunk as mc
+
+    q = torch.randn(1, 128, 4, 128, device="cuda", dtype=torch.bfloat16)
+    ml = [torch.randn(1, 4, 128, 192, device="cuda", dtype=torch.bfloat16)
+          for _ in range(3)]
+    gates = [-torch.rand(1, 4, 128, 1, device="cuda") for _ in range(2)]
+    st = [torch.zeros(1, 4, 192, 192, device="cuda"),
+          torch.zeros(1, 4, 1, 192, device="cuda"),
+          torch.zeros(1, 4, 1, 1, device="cuda")]
+    calls = {
+        "flash_attention": lambda a: fa.flash_attention(a, q, q),
+        "mlstm_chunk": lambda a: mc.mlstm_chunk(a, *ml[1:], *gates, *st)[0],
+    }
+    firsts = {"flash_attention": q, "mlstm_chunk": ml[0]}
+    for name, call in calls.items():
+        for how in ("requires_grad", "torch.func.grad"):
+            a = firsts[name].detach()
+            try:
+                if how == "requires_grad":
+                    call(a.requires_grad_(True))
+                else:
+                    torch.func.grad(lambda x: call(x).float().sum())(a)
+            except RuntimeError as e:
+                check("forward only" in str(e),
+                      f"16 (d) {name} ({how}) raised another error: {e}")
+                continue
+            fail(f"16 (d) {name} handed a tensor a gradient flows through "
+                 f"({how}) returned")
+    print("  16 (d) flash_attention and mlstm_chunk raise when handed a "
+          "CUDA tensor that requires grad, and inside torch.func.grad",
+          flush=True)
+
+
+def training_phase(rows):
+    """Phase 16: the LLM training path (`repro_torch.launch.train`)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    launches, parts = {}, []
+
+    def part(label, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        parts.append(f"{label} {time.perf_counter() - t:.1f} s")
+        return out
+
+    part("(d)", guard_check)
+    with tempfile.TemporaryDirectory(prefix="phase16_ckpt_") as tmp:
+        part("(a)", xlstm_training, tmp, launches)
+    part("(b)", llama_training, launches)
+    part("(c)", card_against_cpu)
+    for k in KERNELS:
+        rows[k]["launches_phase16"] = int(launches.get(k, 0))
+    took = time.perf_counter() - t0
+    print(f"phase 16 (the LLM training path): {took:.1f} s ("
+          + ", ".join(parts) + f"; budget "
+          f"{TRAIN_PHASE_S:.0f} s; host speed varies between calls, so "
+          "the budget is read, not gated)", flush=True)
+
+
 # past this many seconds every thread's stack goes to standard error, so
 # that a run stopped at its time limit shows where it was
 WATCHDOG_S = 900.0
@@ -3936,6 +4622,7 @@ def main() -> None:
     stream_spec = clocked("phase 12", stream_phase, rows, ww_specs)
     async_spec = clocked("phase 13", async_phase, rows, ww_specs, ww_ms)
     clocked("phase 14", mesh_phase, rows, ww_ms, ww_specs)
+    clocked("phase 16", training_phase, rows)
 
     def late_profiles():
         # under the profiler after every timed run: it slows later host

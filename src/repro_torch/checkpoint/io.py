@@ -59,7 +59,7 @@ def _storable(x):
 
 def _write_step(directory: str, step: int, arrays: Dict[str, np.ndarray],
                 manifest_of, keep: int) -> str:
-    """Write arrays.npz and the manifest `manifest_of(npz_bytes)` into
+    """Write arrays.npz and the manifest `manifest_of(npz_path)` into
     <directory>/step_<step> atomically, then keep the newest `keep`."""
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
@@ -67,8 +67,7 @@ def _write_step(directory: str, step: int, arrays: Dict[str, np.ndarray],
     try:
         npz_path = os.path.join(tmp, "arrays.npz")
         np.savez(npz_path, **arrays)
-        with open(npz_path, "rb") as f:
-            manifest = manifest_of(f.read())
+        manifest = manifest_of(npz_path)
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.isdir(final):
@@ -97,7 +96,7 @@ def save_checkpoint(directory: str, tree: Any, step: int,
     }
     return _write_step(directory, step,
                        {f"leaf_{i}": a for i, (a, _) in enumerate(stored)},
-                       lambda _payload: manifest, keep)
+                       lambda _path: manifest, keep)
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -177,11 +176,14 @@ def save_array_dict(directory: str, arrays: Dict[str, Any], step: int,
     retention and a crc32 of the npz payload in the manifest.  The names
     travel with the data: no template is needed to load."""
     stored = {k: _storable(v)[0] for k, v in arrays.items()}
-    return _write_step(
-        directory, step, stored,
-        lambda payload: {"step": int(step), "format": "array_dict",
-                         "keys": sorted(arrays),
-                         "crc32": zlib.crc32(payload)}, keep)
+
+    def manifest_of(npz_path):
+        with open(npz_path, "rb") as f:
+            crc = zlib.crc32(f.read())
+        return {"step": int(step), "format": "array_dict",
+                "keys": sorted(arrays), "crc32": crc}
+
+    return _write_step(directory, step, stored, manifest_of, keep)
 
 
 def load_array_dict(directory: str,

@@ -106,6 +106,28 @@ def state_from_reference(ref, device) -> AFTOState:
     return build(AFTOState, ref)
 
 
+def fed_state_from_reference(ref, device):
+    """The port's `FedLLMState` from a reference `FedLLMState` whose
+    leaves are numpy-convertible (e.g. `jax.tree.map(np.asarray,
+    state)`), read by field name; bf16 leaves cross as their bits."""
+    from repro_torch.fed.trilevel_llm import FedLLMState, LLMCutSet
+
+    def build(cls, obj):
+        return cls(**{
+            f.name: build(LLMCutSet, getattr(obj, f.name))
+            if f.name in ("cuts", "cuts_i")
+            else to_torch(getattr(obj, f.name), device)
+            for f in dataclasses.fields(cls)})
+
+    return build(FedLLMState, ref)
+
+
+def fed_state_to_numpy(state):
+    """A `FedLLMState` as nested dicts of numpy (bf16 widened to f32),
+    keyed by field name like the reference's state after `to_numpy`."""
+    return to_numpy(state)
+
+
 def stream_from_reference(batches, device="cpu"):
     """A port `Stream` (seed 0) that gives the reference's batches.
 

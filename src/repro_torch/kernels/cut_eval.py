@@ -103,6 +103,22 @@ def _launch(name, fn, *args):
     LAUNCHES[name] += 1
 
 
+def forward_only(name: str, tensors) -> None:
+    """Raise if a gradient could flow through any of `tensors`: one that
+    requires grad while grad mode is on, or one wrapped by a `torch.func`
+    transform.  The attention and mLSTM kernels write raw pointers into
+    fresh outputs, so such an output would carry no gradient and the
+    kernel's share of it would vanish without an error; they compute
+    forwards only, as the reference's Pallas kernels do."""
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    for t in tensors:
+        if (t.requires_grad and torch.is_grad_enabled()) or wrapped(t):
+            raise RuntimeError(
+                f"{name}: the kernel computes a forward only and cannot be "
+                "differentiated; run the plain math (impl=\"ref\") under "
+                "autograd or torch.func, or call it under torch.no_grad()")
+
+
 def _bf16(t) -> int:
     return int(t.dtype == torch.bfloat16)
 

@@ -23,7 +23,10 @@ Given CUDA tensors, `flash_attention` launches the routed kernel on the
 current stream and counts the launch in `cut_eval.LAUNCHES` under the
 route's name; given CPU tensors it runs the plain version.  There is no
 other route and no fallback: a CUDA tensor launches the routed kernel or
-raises.  Ragged S and T need no padding.
+raises.  Ragged S and T need no padding.  The kernels are forward-only: a CUDA tensor
+that a gradient can flow through (one that requires grad in grad mode,
+or one inside a `torch.func` transform) raises
+(`cut_eval.forward_only`).
 """
 from __future__ import annotations
 
@@ -87,6 +90,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     _check(q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _kern.forward_only("flash_attention", (q, k, v))
     lib = build.load()
     b, s, h, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]

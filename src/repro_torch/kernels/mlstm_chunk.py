@@ -22,7 +22,10 @@ Given CUDA tensors, `mlstm_chunk` launches the routed kernel on the
 current stream and counts the call in `cut_eval.LAUNCHES` under the
 route's name; given CPU tensors it runs the plain version.  There is no
 other route and no fallback: a CUDA tensor launches the routed kernel or
-raises.  Ragged L needs no padding.
+raises.  Ragged L needs no padding.  The kernels are forward-only: a
+CUDA tensor that a gradient can flow through (one that requires grad in
+grad mode, or one inside a `torch.func` transform) raises
+(`cut_eval.forward_only`).
 """
 from __future__ import annotations
 
@@ -86,6 +89,7 @@ def mlstm_chunk(q, k, v, li, lf, c, n, m):
     _check(q, k, v, li, lf, c, n, m)
     if q.device.type == "cpu":
         return ref.mlstm_chunk_ref(q, k, v, li, lf, c, n, m)
+    _kern.forward_only("mlstm_chunk", (q, k, v, li, lf, c, n, m))
     lib = build.load()
     b, h, l, hd = q.shape
     name = mlstm_route(q.dtype, hd, l)

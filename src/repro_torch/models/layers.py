@@ -118,3 +118,19 @@ def glu_mlp_apply(params, x, act="silu"):
     a = activation(act)
     h = a(x @ params["wg"]) * (x @ params["wi"])
     return h @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """Token-level CE in f32; logits (..., V), labels (...) int; with a
+    `mask` (...) the mean over its weight (at least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -71,10 +71,57 @@ def lenet_init(generator: torch.Generator, n_classes: int = 10,
     }
 
 
+def _run_slice(x, d, r):
+    return x if d is None else x.select(d, r)
+
+
+class Conv2d(torch.autograd.Function):
+    """Stride-1 cross-correlation (NCHW input, OIHW weight, zero padding
+    `padding`) whose derivatives are convolutions of this Function again,
+    so it is differentiable to any order, and whose batching rule runs
+    one convolution per run at the serial run's shapes.  functorch's own
+    rule folds a sweep's runs into channel groups, for which cuDNN picks
+    other algorithms than for the serial run; with this rule each swept
+    run's convolutions, forward and backward, are its serial run's
+    (ROADMAP.md Queue 3, item 12)."""
+
+    @staticmethod
+    def forward(x, w, padding):
+        return F.conv2d(x, w, padding=padding)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, padding = inputs
+        ctx.save_for_backward(x, w)
+        ctx.padding = padding
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        (ph, pw), (kh, kw) = ctx.padding, w.shape[2:]
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            # a full correlation with the flipped, transposed kernel
+            gx = Conv2d.apply(g, w.flip(2, 3).transpose(0, 1),
+                              (kh - 1 - ph, kw - 1 - pw))
+        if ctx.needs_input_grad[1]:
+            # the batch as channels: correlate the input with g
+            gw = Conv2d.apply(x.transpose(0, 1), g.transpose(0, 1),
+                              ctx.padding).transpose(0, 1)
+        return gx, gw, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, padding):
+        dx, dw, _ = in_dims
+        return torch.stack([
+            Conv2d.apply(_run_slice(x, dx, r), _run_slice(w, dw, r),
+                         padding) for r in range(info.batch_size)]), 0
+
+
 def _conv2d(x, w):
     """VALID cross-correlation, stride 1: NHWC input, HWIO weight, NHWC
-    output (PyTorch's NCHW/OIHW inside)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1))
+    output (PyTorch's NCHW/OIHW inside, through `Conv2d`)."""
+    y = Conv2d.apply(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), (0, 0))
     return y.permute(0, 2, 3, 1)
 
 

@@ -1,7 +1,8 @@
-"""Decoder stack of the LLM serving path: prefill and greedy decode.
+"""Decoder stack of the LLM paths: the training loss, prefill and greedy
+decode.
 
-Counterpart of `repro/models/transformer.py` for the blocks the serving
-slice needs: attention (dense, GQA, sliding-window, qk-norm), mLSTM and
+Counterpart of `repro/models/transformer.py` for the blocks the port
+has: attention (dense, GQA, sliding-window, qk-norm), mLSTM and
 sLSTM mixers, and the dense GLU MLP.  The parameter tree is the
 reference's, `{"embed", "final_norm", "lm_head"?, "stages": [{"posI":
 stacked (R, ...)}]}`, so weights carry across one to one
@@ -9,12 +10,17 @@ stacked (R, ...)}]}`, so weights carry across one to one
 stage's repeats.  Mamba and MoE blocks, cross-attention, the encoder and
 the frame frontend raise `NotImplementedError`.
 
-`impl` routes the kernels of prefill's attention and mLSTM chunks like
-`ops.cut_eval`: None runs the kernels on CUDA tensors and the plain math
-on CPU tensors, "kernel" insists on the kernels, "ref" forces the plain
-math anywhere.  Decode is plain torch, as in the reference.
+`impl` routes the kernels of a forward's attention and mLSTM chunks
+like `ops.cut_eval`: None runs the kernels on CUDA tensors and the plain
+math on CPU tensors, "kernel" insists on the kernels, "ref" forces the
+plain math anywhere.  The kernels are forward-only, as the reference's
+Pallas kernels are: `train_loss` and every objective that is
+differentiated run the plain math (`impl="ref"`), and a kernel handed a
+tensor that a gradient can flow through raises.  Decode is plain torch,
+as in the reference.
 
 Modes:
+  train   : full-sequence forward + next-token CE (train_loss)
   prefill : full-sequence forward that also seeds the decode cache
   decode  : one token per call against the cache (decode_step)
 """
@@ -23,19 +29,20 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
                                        glu_mlp_apply, glu_mlp_init, rms_norm,
-                                       zeros)
+                                       softmax_cross_entropy, zeros)
 from repro_torch.utils.tree import tree_index, tree_map
 
 _LATER = {
-    "mamba": "ROADMAP Queue 1, next item 1 (mamba and MoE blocks)",
-    "moe": "ROADMAP Queue 1, next item 1 (mamba and MoE blocks)",
-    "cross_attn": "ROADMAP Queue 1, next item 2 (Whisper's encoder and "
+    "mamba": "ROADMAP.md Queue 1, item 7 (Mamba and MoE blocks)",
+    "moe": "ROADMAP.md Queue 1, item 7 (Mamba and MoE blocks)",
+    "cross_attn": "ROADMAP.md Queue 1, item 8 (Whisper's encoder and "
                   "cross-attention)",
 }
 
@@ -153,10 +160,29 @@ def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs, 0), *trees)
 
 
+def _checkpointed_block(cfg, spec, bp, x, positions, impl):
+    """One block under `torch.utils.checkpoint` (the reference's
+    `jax.checkpoint`): its activations are recomputed in the backward
+    pass.  Checkpointing rests on saved-tensor hooks, which `torch.func`
+    transforms refuse, so under one this raises rather than dropping the
+    remat."""
+    if torch._C._functorch.peek_interpreter_stack() is not None:
+        raise NotImplementedError(
+            "remat=True under a torch.func transform (grad / vmap): "
+            "torch.utils.checkpoint cannot nest there; pass remat=False "
+            "(see ROADMAP.md Queue 1, item 9)")
+    return torch_checkpoint.checkpoint(
+        lambda bp_, x_: _block_fwd(cfg, spec, bp_, x_, positions, False,
+                                   impl)[0],
+        bp, x, use_reentrant=False)
+
+
 def _run_stages(cfg: ModelConfig, stages_params, x, positions,
-                collect_kv: bool = False, impl: Optional[str] = None):
+                collect_kv: bool = False, impl: Optional[str] = None,
+                remat: bool = False):
     """Returns (x, caches): caches is a list parallel to the stages, each
-    {posN: stacked-over-repeats cache} (or None)."""
+    {posN: stacked-over-repeats cache} (or None).  remat checkpoints each
+    block (not while collecting caches, as in the reference)."""
     caches: List[Optional[dict]] = []
     for st_params, st in zip(stages_params, cfg.stages):
         per_pos: Dict[str, List] = {f"pos{i}": []
@@ -164,6 +190,10 @@ def _run_stages(cfg: ModelConfig, stages_params, x, positions,
         for r in range(st.repeats):
             for i, spec in enumerate(st.pattern):
                 bp = tree_index(st_params[f"pos{i}"], r)
+                if remat and not collect_kv:
+                    x = _checkpointed_block(cfg, spec, bp, x, positions,
+                                            impl)
+                    continue
                 x, kv = _block_fwd(cfg, spec, bp, x, positions, collect_kv,
                                    impl)
                 per_pos[f"pos{i}"].append(kv)
@@ -188,20 +218,48 @@ def _logits(cfg: ModelConfig, params, x):
 
 
 def forward(cfg: ModelConfig, params, tokens, frames=None,
-            collect_kv: bool = False, impl: Optional[str] = None):
-    """tokens: (B,S) int -> (logits (B,S,V), aux_loss, caches).  aux_loss
-    is the MoE router loss, zero here (no MoE block is ported)."""
+            unroll: bool = False, collect_kv: bool = False,
+            remat: bool = False, embed_perturbation=None,
+            impl: Optional[str] = None):
+    """tokens: (B,S) int -> (logits (B,S,V), aux_loss, caches).
+
+    embed_perturbation: optional (B,S,d) added to the token embeddings in
+    their dtype (the trilevel robust-HPO adversarial variable x2 enters
+    here).  remat checkpoints each block.  `unroll` is the reference's
+    signature only: the port's layer loop is always a Python loop, so it
+    has no effect.  aux_loss is the MoE router loss, zero here (no MoE
+    block is ported)."""
+    del unroll
     _check_supported(cfg)
     if frames is not None:
         _unported("the frame frontend", "cross_attn")
     x = _embed(params, tokens)
+    if embed_perturbation is not None:
+        x = x + embed_perturbation.to(x.dtype)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
     x, caches = _run_stages(cfg, params["stages"], x, positions, collect_kv,
-                            impl)
+                            impl, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(cfg, params, x), aux, caches
+
+
+def train_loss(cfg: ModelConfig, params, tokens, frames=None,
+               unroll: bool = False, remat: bool = False,
+               embed_perturbation=None, impl: Optional[str] = "ref"):
+    """Next-token CE + MoE aux loss (zero: no MoE block is ported).
+
+    embed_perturbation, if given, must match the model INPUT length
+    (tokens.shape[1] - 1).  The plain math by default (`impl="ref"`): the
+    kernels are forward-only; a caller that only evaluates the loss
+    under `torch.no_grad()` may pass impl=None to run them."""
+    logits, aux, _ = forward(cfg, params, tokens[:, :-1], frames, unroll,
+                             remat=remat,
+                             embed_perturbation=embed_perturbation,
+                             impl=impl)
+    ce = softmax_cross_entropy(logits, tokens[:, 1:])
+    return ce + cfg.router_aux_coef * aux
 
 
 # ---------------------------------------------------------------------------

@@ -224,18 +224,27 @@ def mlstm_decode(params, x, state) -> Tuple[torch.Tensor, dict]:
 # sLSTM
 # ---------------------------------------------------------------------------
 
-def _slstm_step(params, st, zt, ot_gate, lit, lft):
-    """One recurrence step. zt/ot_gate: (B,H,hd); lit/lft: (B,H)."""
-    rz = torch.einsum("bhd,hde->bhe", st["h"].to(params["rz"].dtype),
-                      params["rz"]).float()
-    z = torch.tanh(zt.float() + rz)
-    m_new = torch.maximum(lft + st["m"], lit)
-    wf = torch.exp(lft + st["m"] - m_new)[..., None]
+def _slstm_core(rz_w, st, zf, gate, lit, lft):
+    """One recurrence step on hoisted inputs: zf = zt in f32 (B,H,hd),
+    gate = sigmoid(o-gate) in f32; lit/lft: (B,H).  The same values as
+    the reference's step; its elementwise input casts and the gate's
+    sigmoid run once per sequence instead of once per step."""
+    rz = torch.einsum("bhd,hde->bhe", st["h"].to(rz_w.dtype), rz_w).float()
+    z = torch.tanh(zf + rz)
+    lfm = lft + st["m"]
+    m_new = torch.maximum(lfm, lit)
+    wf = torch.exp(lfm - m_new)[..., None]
     wi = torch.exp(lit - m_new)[..., None]
     c = wf * st["c"] + wi * z
     n = wf * st["n"] + wi
-    h = torch.sigmoid(ot_gate.float()) * c / torch.clamp(n, min=1e-6)
+    h = gate * c / torch.clamp(n, min=1e-6)
     return {"c": c, "n": n, "h": h, "m": m_new}
+
+
+def _slstm_step(params, st, zt, ot_gate, lit, lft):
+    """One recurrence step. zt/ot_gate: (B,H,hd); lit/lft: (B,H)."""
+    return _slstm_core(params["rz"], st, zt.float(),
+                       torch.sigmoid(ot_gate.float()), lit, lft)
 
 
 def _slstm_inputs(params, x):
@@ -254,10 +263,11 @@ def slstm_apply(params, x, state=None) -> Tuple[torch.Tensor, dict]:
     z, og, li, lf = _slstm_inputs(params, x)
     if state is None:
         state = init_slstm_state(b, h_heads, hd, device=x.device)
+    zf, gate = z.float(), torch.sigmoid(og.float())
     hs = []
     for t in range(x.shape[1]):
-        state = _slstm_step(params, state, z[:, t], og[:, t], li[:, t],
-                            lf[:, t])
+        state = _slstm_core(params["rz"], state, zf[:, t], gate[:, t],
+                            li[:, t], lf[:, t])
         hs.append(state["h"])
     y = torch.stack(hs, dim=1).to(x.dtype)             # (B,S,H,hd)
     return torch.einsum("bshk,hkd->bsd", y, params["wo"]), state

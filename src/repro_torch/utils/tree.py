@@ -11,7 +11,8 @@ as w0, b0, w1, b1 would flatten permuted against the reference).
 """
 from __future__ import annotations
 
-from typing import Any, List, Tuple
+import dataclasses
+from typing import Any, List, NamedTuple, Tuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -78,6 +79,53 @@ def tree_map(fn, tree, *rest):
     return tree_unflatten(tdef, [fn(*xs) for xs in zip(leaves, *others)])
 
 
+class DictKey(NamedTuple):
+    key: Any
+
+
+class SequenceKey(NamedTuple):
+    idx: int
+
+
+class GetAttrKey(NamedTuple):
+    name: str
+
+
+def _paths(t, prefix: tuple, out: List[Tuple[tuple, Any]]) -> None:
+    if t is None:
+        return
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _paths(t[k], prefix + (DictKey(k),), out)
+    elif isinstance(t, (list, tuple)):
+        for i, x in enumerate(t):
+            _paths(x, prefix + (SequenceKey(i),), out)
+    elif type(t) in pytree.SUPPORTED_NODES:
+        for f, c in zip(dataclasses.fields(t),
+                        pytree.SUPPORTED_NODES[type(t)].flatten_fn(t)[0]):
+            _paths(c, prefix + (GetAttrKey(f.name),), out)
+    else:
+        out.append((prefix, t))
+
+
+def tree_leaves_with_path(tree) -> List[Tuple[tuple, Any]]:
+    """(path, leaf) pairs in `tree_leaves` order, as
+    `jax.tree_util.tree_leaves_with_path` gives them: a path is a tuple
+    of `DictKey` / `SequenceKey` / `GetAttrKey` (a registered state
+    dataclass's field) entries."""
+    out: List[Tuple[tuple, Any]] = []
+    _paths(tree, (), out)
+    return out
+
+
+def weak(s, x):
+    """The Python number s as a 0-d CPU tensor of x's dtype, for `s * x`:
+    JAX rounds a Python scalar to a bf16 operand's type before the
+    product (a weak type), where torch would multiply by the scalar in
+    f32 and round once after."""
+    return torch.tensor(s, dtype=x.dtype)
+
+
 def tree_add(a, b):
     return tree_map(torch.add, a, b)
 
@@ -127,8 +175,9 @@ def grad(fn, *args):
     return torch.func.grad(fn, argnums=tuple(range(len(args))))(*args)
 
 
-def value_and_grad(fn, *args):
-    """(fn(*args), `grad(fn, *args)`) in one evaluation."""
+def value_and_grad(fn, *args, has_aux: bool = False):
+    """(fn(*args), `grad(fn, *args)`) in one evaluation.  With has_aux,
+    fn returns (value, aux) and so does the first element."""
     grads, val = torch.func.grad_and_value(
-        fn, argnums=tuple(range(len(args))))(*args)
+        fn, argnums=tuple(range(len(args))), has_aux=has_aux)(*args)
     return val, grads

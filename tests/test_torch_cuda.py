@@ -746,3 +746,73 @@ def test_worker_mesh_on_the_card(cuda, backend, width):
         assert r["traffic"]["refresh"] == 8 * rec["refresh_bytes"]
         assert r["traffic"]["gap"] == 8 * rec["gap_bytes"]
         assert sum(r["launches"].values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# the LLM training path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("how", ["requires_grad", "torch.func.grad"])
+def test_kernel_wrappers_refuse_differentiable_inputs(cuda, how):
+    """The flash and mLSTM kernels compute forwards only: handed a tensor
+    that a gradient can flow through, each wrapper raises instead of
+    returning an output with no gradient."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm_chunk as mc
+
+    q = torch.randn(1, 64, 4, 128, device=cuda, dtype=torch.bfloat16)
+    qkv = [torch.randn(1, 4, 64, 128, device=cuda, dtype=torch.bfloat16)
+           for _ in range(3)]
+    gates = [-torch.rand(1, 4, 64, 1, device=cuda) for _ in range(2)]
+    st = [torch.zeros(1, 4, 128, 128, device=cuda),
+          torch.zeros(1, 4, 1, 128, device=cuda),
+          torch.zeros(1, 4, 1, 1, device=cuda)]
+    calls = [(lambda a: fa.flash_attention(a, q, q), q),
+             (lambda a: mc.mlstm_chunk(a, *qkv[1:], *gates, *st)[0],
+              qkv[0])]
+    for call, x in calls:
+        with pytest.raises(RuntimeError, match="forward only"):
+            if how == "requires_grad":
+                call(x.detach().requires_grad_(True))
+            else:
+                torch.func.grad(lambda a: call(a).float().sum())(x)
+        with torch.no_grad():
+            call(x.detach().requires_grad_(True))
+
+
+def test_sketch_on_the_card_is_deterministic_and_matches_the_cpu(cuda):
+    """The card's fixed-point scatter-add gives the same bits twice on a
+    2^27-element leaf, and agrees with the CPU's f32 sum (the
+    reference's order) within 1e-6 of the largest bucket."""
+    import importlib
+    sk = importlib.import_module("repro_torch.fed.sketch")
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(1 << 27, generator=g, device=cuda)
+    a, b = sk.sketch({"w": x}, 3, 256), sk.sketch({"w": x}, 3, 256)
+    assert torch.equal(a, b)
+    tree = {"w": x[:1 << 22].reshape(1024, -1), "b": x[-5000:],
+            "h": x[7:7 + 30_000].to(torch.bfloat16)}
+    got = sk.sketch(tree, 5, 4096).cpu()
+    want = sk.sketch({k: v.cpu() for k, v in tree.items()}, 5, 4096)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    rows = torch.stack([tree["w"][:8], tree["w"][8:16]])
+    assert torch.equal(sk.sketch_rows({"r": rows}, 2, 64, batch_dims=1),
+                       sk.sketch_rows({"r": rows}, 2, 64, batch_dims=1))
+
+
+def test_sketch_on_the_card_marks_a_non_finite_row(cuda):
+    """A row holding a NaN sketches to NaN in every bucket; the other rows
+    keep the bits they have when sketched without it (the fixed point's
+    scale is taken over the finite rows)."""
+    import importlib
+    sk = importlib.import_module("repro_torch.fed.sketch")
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    rows = torch.randn(3, 40, 50, generator=g, device=cuda)
+    rows[1, 7, 3] = float("nan")
+    got = sk.sketch_rows({"r": rows}, 2, 64, batch_dims=1)
+    assert bool(torch.isnan(got[1]).all())
+    for i in (0, 2):
+        alone = sk.sketch_rows({"r": rows[i:i + 1]}, 2, 64, batch_dims=1)
+        assert torch.equal(got[i], alone[0])
