@@ -8,7 +8,8 @@ Counterpart of `repro/launch/serve.py`.  Two subcommands:
           [--device cpu]
       (a bare flag invocation routes here too.)  On the card prefill's
       attention runs the flash kernel and xLSTM's mLSTM chunks the mLSTM
-      kernel.
+      kernel.  Whisper (`--arch whisper-large-v3`) is served on random
+      frame embeddings, as in the reference.
 
   fed      one async federation run: a master plus N workers over the
            in-process transport (threads) or TCP (worker subprocesses,
@@ -51,16 +52,31 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def draw_frames(cfg, batch: int, seed: int, device):
+    """`serve`'s frame embeddings for a frame-frontend arch: (batch,
+    encoder_seq, d_model) bf16 normals from a `torch.Generator` seeded
+    `seed + 1` on `device`; None for a token-frontend arch."""
+    if cfg.frontend != "frames":
+        return None
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    return torch.randn((batch, cfg.encoder_seq, cfg.d_model), device=device,
+                       generator=gen).to(torch.bfloat16)
+
+
 def serve(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
-          params=None, device=None, impl: Optional[str] = None):
+          params=None, device=None, impl: Optional[str] = None,
+          frames=None):
     """Prefill `batch` Zipfian prompts of `prompt_len` tokens (seeded by
     `seed`, the reference's prompts), then decode `gen` tokens greedily.
 
     Weights are drawn from a `torch.Generator` seeded with `seed` on the
     device, or taken from `params` (e.g. `convert.params_from_reference`).
-    `impl` routes prefill's kernels (see `models.transformer`).  Returns
-    {prefill_s, decode_s, tok_per_s, generated (B, gen) numpy}; the
-    device is synchronised before each clock reading."""
+    A frame-frontend arch (Whisper) also takes (batch, encoder_seq,
+    d_model) frame embeddings: `frames`, or `draw_frames` (the reference
+    draws them from `PRNGKey(seed + 1)`).  `impl` routes prefill's
+    kernels (see `models.transformer`).  Returns {prefill_s, decode_s,
+    tok_per_s, generated (B, gen) numpy}; the device is synchronised
+    before each clock reading."""
     device = resolve_device(device)
     with torch.inference_mode():
         if params is None:
@@ -69,10 +85,12 @@ def serve(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
         prompts = torch.as_tensor(
             make_token_stream(cfg.vocab_size, batch, prompt_len, seed=seed),
             device=device)
+        if frames is None:
+            frames = draw_frames(cfg, batch, seed, device)
 
         _sync(device)
         t0 = time.perf_counter()
-        logits, caches = tfm.prefill(cfg, params, prompts,
+        logits, caches = tfm.prefill(cfg, params, prompts, frames,
                                      max_seq=prompt_len + gen + 1, impl=impl)
         nxt = tfm.greedy_sample(logits)[:, None]
         _sync(device)

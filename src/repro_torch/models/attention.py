@@ -1,14 +1,17 @@
-"""GQA attention: full/sliding-window causal self-attention and the
-ring-buffer KV cache for decode.
+"""GQA attention: full/sliding-window causal and non-causal
+self-attention, cross-attention, and the ring-buffer KV cache for
+decode.
 
 Counterpart of `repro/models/attention.py`.  `attend` is the dense math
-and the flash kernel's oracle (`kernels/ref.py` uses it).  Causal
-self-attention over the full sequence (train / prefill) runs the
-hand-written flash kernel on CUDA tensors (`ops.flash_attention`),
-whatever the config's `attn_impl`; on CPU tensors it runs `attend` or
-`attend_chunked` by `attn_impl`, as the reference does.  Decode
-attention, one query against the cache, is plain torch, as in the
-reference.  Cross-attention (Whisper) is not ported yet.
+and the flash kernel's oracle (`kernels/ref.py` uses it).  Attention
+over a full sequence (train / prefill) runs the hand-written flash
+kernel on CUDA tensors (`ops.flash_attention`), whatever the
+config's `attn_impl`: causal self-attention, and non-causal attention
+(the encoder's self-attention, cross-attention over the encoder's keys)
+with the kernel's `causal=0`, unmasked as `attend` is.  On CPU tensors
+it runs `attend` or `attend_chunked` by `attn_impl`, as the reference
+does.  Decode attention, one query against a cache, is plain torch, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -28,16 +31,25 @@ NEG_INF = -2.0 ** 20  # large-but-finite; avoids NaN from all-masked rows
 # ---------------------------------------------------------------------------
 
 def attn_init(generator, d, n_heads, n_kv_heads, head_dim, dtype,
-              qk_norm: bool = False, device=None, lead: Sequence[int] = ()):
+              cross: bool = False, qk_norm: bool = False, device=None,
+              lead: Sequence[int] = ()):
     kw = dict(device=device, lead=lead)
-    p = {"wq": dense_init(generator, (d, n_heads, head_dim), dtype,
-                          fan_in=d, **kw),
-         "wk": dense_init(generator, (d, n_kv_heads, head_dim), dtype,
-                          fan_in=d, **kw),
-         "wv": dense_init(generator, (d, n_kv_heads, head_dim), dtype,
-                          fan_in=d, **kw),
-         "wo": dense_init(generator, (n_heads, head_dim, d), dtype,
-                          fan_in=n_heads * head_dim, **kw)}
+
+    def heads(prefix):
+        return {
+            prefix + "wq": dense_init(generator, (d, n_heads, head_dim),
+                                      dtype, fan_in=d, **kw),
+            prefix + "wk": dense_init(generator, (d, n_kv_heads, head_dim),
+                                      dtype, fan_in=d, **kw),
+            prefix + "wv": dense_init(generator, (d, n_kv_heads, head_dim),
+                                      dtype, fan_in=d, **kw),
+            prefix + "wo": dense_init(generator, (n_heads, head_dim, d),
+                                      dtype, fan_in=n_heads * head_dim,
+                                      **kw)}
+
+    p = heads("")
+    if cross:
+        p.update(heads("x"))
     if qk_norm:
         p["q_norm"] = zeros((head_dim,), dtype, **kw)
         p["k_norm"] = zeros((head_dim,), dtype, **kw)
@@ -134,6 +146,19 @@ def _project(x, w):
     return torch.einsum("bsd,dhk->bshk", x, w)
 
 
+def _flash(q, k, v, causal: bool, window: int):
+    """The flash kernel (`ops.flash_attention`, impl="kernel").
+    Non-causal attention is not masked, the window included (as
+    `flash_attention_ref`); its blocks span the whole sequence, which
+    meets the wrapper's block-alignment rule for non-causal inputs (the
+    kernel masks ragged edges itself)."""
+    if causal:
+        return ops.flash_attention(q, k, v, causal=True, window=window,
+                                   impl="kernel")
+    return ops.flash_attention(q, k, v, causal=False, block_q=q.shape[1],
+                               block_k=k.shape[1], impl="kernel")
+
+
 def self_attention(params, x, positions, *, n_kv_heads, rope_theta,
                    causal: bool = True, window: int = 0,
                    qk_norm: bool = False, norm_eps: float = 1e-6,
@@ -142,12 +167,12 @@ def self_attention(params, x, positions, *, n_kv_heads, rope_theta,
     """x: (B,S,d) -> (B,S,d); also returns (k,v) for cache seeding.
 
     `impl` is the reference's attention implementation off the card
-    ("naive" or "chunked").  `kernel_impl` routes causal attention like
+    ("naive" or "chunked").  `kernel_impl` routes the attention like
     `ops.flash_attention`: None runs the flash kernel on CUDA tensors and
     `impl`'s plain math on CPU tensors, "kernel" insists on the kernel,
     "ref" forces `impl`'s plain math anywhere.  The kernel masks on row
-    indices, which are the positions of a full sequence (forward and
-    prefill pass `arange(S)`)."""
+    indices, which are the positions of a full sequence (forward,
+    prefill and the encoder pass `arange(S)`)."""
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
     v = _project(x, params["wv"])
@@ -156,9 +181,8 @@ def self_attention(params, x, positions, *, n_kv_heads, rope_theta,
         k = rms_norm(k, params["k_norm"], norm_eps)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    if causal and ops.route(x, kernel_impl) == "kernel":
-        o = ops.flash_attention(q, k, v, causal=True, window=window,
-                                impl="kernel")
+    if ops.route(x, kernel_impl) == "kernel":
+        o = _flash(q, k, v, causal, window)
     elif impl == "chunked" and causal:
         o = attend_chunked(q, k, v, causal=causal, window=window,
                            block_q=block_q, block_k=block_k)
@@ -167,6 +191,24 @@ def self_attention(params, x, positions, *, n_kv_heads, rope_theta,
             if causal else None
         o = attend(q, k, v, mask)
     return torch.einsum("bshk,hkd->bsd", o, params["wo"]), (k, v)
+
+
+def cross_attention(params, x, enc_kv, *,
+                    kernel_impl: Optional[str] = None):
+    """Decoder cross-attn; enc_kv = (k, v) precomputed from the encoder.
+    Unmasked; `kernel_impl` routes it as `self_attention` does (decode
+    passes "ref": one query, plain torch as in the reference)."""
+    q = _project(x, params["xwq"])
+    k, v = enc_kv
+    if ops.route(x, kernel_impl) == "kernel":
+        o = _flash(q, k, v, False, 0)
+    else:
+        o = attend(q, k, v, None)
+    return torch.einsum("bshk,hkd->bsd", o, params["xwo"])
+
+
+def encode_kv(params, enc_out):
+    return _project(enc_out, params["xwk"]), _project(enc_out, params["xwv"])
 
 
 # ---------------------------------------------------------------------------

@@ -107,6 +107,10 @@ def uniform_stages(n_layers: int, block: BlockSpec) -> Tuple[Stage, ...]:
     return (Stage(pattern=(block,), repeats=n_layers),)
 
 
+# ---------------------------------------------------------------------------
+# analytic cost model (the reference's, for model-FLOP rates)
+# ---------------------------------------------------------------------------
+
 def param_count(cfg: ModelConfig) -> dict:
     """Per-component parameter counts (embedding counted once if tied)."""
     d, hd = cfg.d_model, cfg.head_dim
@@ -146,3 +150,78 @@ def param_count(cfg: ModelConfig) -> dict:
         counts["norms"] += 2 * d + (d if b.cross_attn else 0)
     counts["total"] = sum(v for k, v in counts.items() if k != "total")
     return counts
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params touched per token (MoE: top_k experts instead of all)."""
+    if cfg.n_experts == 0:
+        return param_count(cfg)["total"]
+    layers = cfg.all_layers()
+    moe_layers = sum(1 for b in layers if b.mlp == "moe")
+    full = param_count(cfg)["total"]
+    inactive = moe_layers * (cfg.n_experts - cfg.top_k) * 3 \
+        * cfg.d_model * cfg.d_ff
+    return full - inactive
+
+
+def step_flops(cfg: ModelConfig, batch: int, seq: int, training: bool,
+               kv_len: int = 0) -> dict:
+    """Analytic FLOPs for one forward (and backward if training).
+
+    kv_len > 0 means decode: `seq` new tokens attending to kv_len cached
+    positions.  Matmul flops only (2*MACs); backward = 2x forward."""
+    d, hd = cfg.d_model, cfg.head_dim
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    tokens = batch * seq
+    out = {"proj": 0.0, "attn": 0.0, "mixer_state": 0.0, "mlp": 0.0,
+           "logits": 2.0 * tokens * d * cfg.vocab_size}
+
+    def attn_ctx(b: BlockSpec) -> float:
+        if kv_len:
+            ctx = min(kv_len, b.window or cfg.long_context_window or kv_len)
+            return 2.0 * 2.0 * tokens * h * hd * ctx
+        w = b.window or seq
+        # causal: sum over i of min(i, w) approx seq*min(seq,w)/2 for full
+        eff = seq * min(seq, w) / 2 if w >= seq else seq * w
+        return 2.0 * 2.0 * batch * h * hd * eff
+
+    layers = cfg.all_layers()
+    if cfg.is_encoder_decoder:
+        enc_tokens = batch * cfg.encoder_seq
+        for st in cfg.encoder_stages:
+            for b in st.pattern:
+                out["proj"] += st.repeats * 2.0 * enc_tokens * (
+                    d * h * hd + 2 * d * hkv * hd + h * hd * d)
+                out["attn"] += st.repeats * 2.0 * 2.0 * batch * h * hd \
+                    * cfg.encoder_seq ** 2
+                out["mlp"] += st.repeats * 2.0 * enc_tokens * 3 * d * cfg.d_ff
+
+    for b in layers:
+        if b.mixer == "attn":
+            out["proj"] += 2.0 * tokens * (d * h * hd + 2 * d * hkv * hd
+                                           + h * hd * d)
+            out["attn"] += attn_ctx(b)
+            if b.cross_attn:
+                out["proj"] += 2.0 * tokens * (d * h * hd + h * hd * d)
+                out["attn"] += 2.0 * 2.0 * tokens * h * hd * cfg.encoder_seq
+        elif b.mixer == "mamba":
+            di = cfg.ssm_expand * d
+            out["proj"] += 2.0 * tokens * (2 * d * di + di * d
+                                           + di * (2 * cfg.ssm_d_state + 1))
+            out["mixer_state"] += 2.0 * tokens * di * cfg.ssm_d_state * 2
+        else:  # mlstm / slstm
+            out["proj"] += 2.0 * tokens * (3 * d * h * hd + h * hd * d)
+            if b.mixer == "mlstm":
+                # chunkwise matrix-memory update ~ 2 * dh^2 per token-head
+                out["mixer_state"] += 2.0 * tokens * h * hd * hd * 2
+            else:
+                out["mixer_state"] += 2.0 * tokens * h * hd * 4
+        if b.mlp == "dense":
+            out["mlp"] += 2.0 * tokens * 3 * d * cfg.d_ff
+        elif b.mlp == "moe":
+            out["mlp"] += 2.0 * tokens * (d * cfg.n_experts
+                                          + cfg.top_k * 3 * d * cfg.d_ff)
+
+    out["fwd_total"] = sum(v for k, v in out.items())
+    out["total"] = out["fwd_total"] * (3.0 if training else 1.0)
+    return out

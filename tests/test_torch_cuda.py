@@ -512,8 +512,75 @@ def test_kernel_route_is_taken_on_cuda_tensors(cuda):
                                    rtol=6e-3, atol=6e-3)
 
 
+@pytest.mark.parametrize("s,t", [(1500, 1500), (416, 1500)])
+def test_flash_non_causal_at_whispers_shapes(cuda, s, t):
+    """Whisper large-v3's heads (H = Hkv = 20, hd 64) in bf16: the
+    encoder's self-attention over 1,500 frames and the decoder's
+    cross-attention of 416 queries over them, unmasked, against the
+    plain version; one launch a call, bitwise repeatable."""
+    from repro_torch.kernels import flash_attention as flash, ref
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.tensor(_normal(rng, 1, n, 20, 64)).to(torch.bfloat16)
+               .to(cuda) for n in (s, t, t))
+    kern.reset_launches()
+    got = flash.flash_attention(q, k, v, causal=False)
+    assert dict(kern.LAUNCHES) == {"flash_attention": 1}
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    tol = FLASH_TOL[torch.bfloat16]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(got, flash.flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_apply_on_the_card_is_bitwise_repeatable(cuda, dtype):
+    """The MoE mixer (index-write dispatch, batched expert products, the
+    K rows of each token summed in a fixed order) gives the same bits
+    twice, drops included, and agrees with the CPU in f32."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.moe_init(gen, 256, 512, 16, dtype, device=cuda)
+    x = torch.randn((4, 256, 256), generator=gen, device=cuda).to(dtype)
+    with torch.inference_mode():
+        a = moe.moe_apply(p, x, 2, 0.75)
+        b = moe.moe_apply(p, x, 2, 0.75)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    if dtype == torch.float32:
+        cpu = moe.moe_apply({k: v.cpu() for k, v in p.items()}, x.cpu(), 2,
+                            0.75)
+        np.testing.assert_allclose(a[0].cpu().numpy(), cpu[0].numpy(),
+                                   **F32)
+
+
+def test_reduced_jamba_prefill_on_the_card_matches_the_cpu(cuda):
+    """Reduced Jamba (f32; Mamba's chunk scan, MoE, one attention layer
+    on the f32 flash kernel): prefill logits and caches on the card
+    against the CPU's."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.models import transformer as tfm
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    cfg = reduced(get_config("jamba-v0.1-52b"))
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.tensor(make_token_stream(cfg.vocab_size, 2, 48, seed=0))
+    with torch.inference_mode():
+        want, wc = tfm.prefill(cfg, params, toks, max_seq=60)
+        kern.reset_launches()
+        got, gc = tfm.prefill(cfg, tree_map(lambda a: a.to(cuda), params),
+                              toks.to(cuda), max_seq=60)
+    assert dict(kern.LAUNCHES) == {"flash_attention_f32": 1}
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)
+    for g, w in zip(tree_leaves(gc), tree_leaves(wc)):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().numpy(), rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.parametrize("name,prompt_len", [("llama3-8b", 48),
-                                             ("xlstm-125m", 40)])
+                                             ("xlstm-125m", 40),
+                                             ("jamba-v0.1-52b", 32),
+                                             ("whisper-large-v3", 16)])
 def test_reduced_serve_through_the_kernels(cuda, name, prompt_len):
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels.flash_attention import flash_route
@@ -527,9 +594,14 @@ def test_reduced_serve_through_the_kernels(cuda, name, prompt_len):
     res = serve(cfg, 2, prompt_len, 6, params=params)
     launches = dict(kern.LAUNCHES)
     plain = serve(cfg, 2, prompt_len, 6, params=params, impl="ref")
-    if name == "llama3-8b":
+    if name != "xlstm-125m":
+        # one launch a self-attention layer, encoder's included, and one
+        # a cross-attention layer
+        layers = cfg.all_layers() + [b for st in cfg.encoder_stages
+                                     for b in st.pattern * st.repeats]
         route = flash_route(getattr(torch, cfg.dtype), cfg.head_dim)
-        assert launches == {route: cfg.n_layers}
+        assert launches == {route: sum(
+            (b.mixer == "attn") + b.cross_attn for b in layers)}
     else:
         route = mlstm_route(getattr(torch, cfg.dtype), cfg.head_dim,
                             prompt_len // 2)

@@ -3,9 +3,10 @@ against the reference, on the CPU.
 
 Inputs are numpy arrays (or the reference's own `init_params`) handed to
 both packages.  Modules are held to the reference at 1e-5 in f32; the
-slice as a whole (reduced llama3-8b, gemma3-12b and xlstm-125m, f32) at
-the reference's 2e-4 for prefill logits (tests/test_attention_impl.py),
-with greedy tokens equal.  The card's kernel route is covered by
+slice as a whole (reduced llama3-8b, gemma3-12b, xlstm-125m,
+jamba-v0.1-52b, mixtral-8x22b, kimi-k2-1t-a32b and whisper-large-v3,
+f32) at the reference's 2e-4 for prefill logits and caches
+(tests/test_attention_impl.py), with greedy tokens equal.  The card's kernel route is covered by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 import dataclasses
@@ -28,7 +29,7 @@ from repro.models import layers as jax_layers
 from repro.models import transformer as jax_tfm
 from repro.models import xlstm as jax_xlstm
 from repro_torch import convert
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.data.synthetic import make_token_stream
 from repro_torch.kernels import cut_eval as kern
 from repro_torch.launch import serve as serve_lib
@@ -36,6 +37,19 @@ from repro_torch.models import attention, layers, transformer as tfm, xlstm
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch's CPU ops on one thread: the suite runs files in parallel
+    processes, and on several threads an elementwise op splits a tensor
+    at bounds that depend on its size, so an element may take the
+    vectorised or the scalar exp (`f32_logits`' expert groups would
+    differ from the whole block in the last bit)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _rng(seed):
@@ -212,7 +226,11 @@ def test_slstm_apply_and_decode():
 
 SLICE = {"llama3-8b": dict(batch=2, prompt_len=12),
          "gemma3-12b": dict(batch=2, prompt_len=12),
-         "xlstm-125m": dict(batch=2, prompt_len=32)}   # two mLSTM chunks
+         "xlstm-125m": dict(batch=2, prompt_len=32),   # two mLSTM chunks
+         "jamba-v0.1-52b": dict(batch=2, prompt_len=32),   # two scan chunks
+         "mixtral-8x22b": dict(batch=2, prompt_len=12),
+         "kimi-k2-1t-a32b": dict(batch=2, prompt_len=12),
+         "whisper-large-v3": dict(batch=2, prompt_len=12)}
 # prefill logits and caches: attention models at the reference's 2e-4
 # (tests/test_attention_impl.py); xLSTM at the reference's f32 mLSTM
 # tolerance 6e-3 (tests/test_kernels.py), because its normalizer
@@ -221,7 +239,11 @@ SLICE = {"llama3-8b": dict(batch=2, prompt_len=12),
 # by up to 3.3e-4 on these prompts (ROADMAP Queue 3)
 SLICE_TOL = {"llama3-8b": dict(rtol=2e-4, atol=2e-4),
              "gemma3-12b": dict(rtol=2e-4, atol=2e-4),
-             "xlstm-125m": dict(rtol=6e-3, atol=6e-3)}
+             "xlstm-125m": dict(rtol=6e-3, atol=6e-3),
+             "jamba-v0.1-52b": dict(rtol=2e-4, atol=2e-4),
+             "mixtral-8x22b": dict(rtol=2e-4, atol=2e-4),
+             "kimi-k2-1t-a32b": dict(rtol=2e-4, atol=2e-4),
+             "whisper-large-v3": dict(rtol=2e-4, atol=2e-4)}
 
 
 @pytest.fixture(scope="module", params=sorted(SLICE))
@@ -243,21 +265,41 @@ def _prompts(cfg, name):
                              seed=0)
 
 
+def _frames(cfg, batch):
+    """Frame embeddings (numpy, f32) for a frame-frontend arch, else
+    None."""
+    if cfg.frontend != "frames":
+        return None
+    return _normal(_rng(11), batch, cfg.encoder_seq, cfg.d_model)
+
+
+def _tt(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _jt(a):
+    return None if a is None else jnp.asarray(a)
+
+
 def test_prefill_and_greedy_decode_match_reference(model):
     name, jcfg, cfg, jparams, params = model
-    _prefill_and_decode(jcfg, cfg, jparams, params, _prompts(cfg, name),
-                        SLICE_TOL[name])
+    toks = _prompts(cfg, name)
+    _prefill_and_decode(jcfg, cfg, jparams, params, toks, SLICE_TOL[name],
+                        frames=_frames(cfg, toks.shape[0]))
 
 
-def _prefill_and_decode(jcfg, cfg, jparams, params, toks, tol, n_gen=8):
+def _prefill_and_decode(jcfg, cfg, jparams, params, toks, tol, n_gen=8,
+                        frames=None):
     """Prefill, then n_gen greedy tokens in both packages: logits and
-    caches within `tol`, the tokens equal."""
+    caches (after prefill and after every decode step) within `tol`, the
+    tokens equal."""
     b, s = toks.shape
     with torch.inference_mode():
         logits, caches = tfm.prefill(cfg, params, torch.tensor(toks),
-                                     max_seq=s + n_gen + 1)
-    jlogits, jcaches = jax_tfm.prefill(jcfg, jparams, jnp.asarray(toks),
-                                       max_seq=s + n_gen + 1)
+                                     _tt(frames), max_seq=s + n_gen + 1)
+    jlogits, jcaches = jax.jit(lambda p, tk, fr: jax_tfm.prefill(
+        jcfg, p, tk, fr, max_seq=s + n_gen + 1))(jparams, jnp.asarray(toks),
+                                                 _jt(frames))
     _close(logits, jlogits, tol)
     _close_tree(caches, jcaches, tol)
     nxt = tfm.greedy_sample(logits)[:, None]
@@ -309,9 +351,19 @@ def test_gemma_hd256_past_the_window_matches_reference():
 
 
 def test_serve_matches_reference_serve(model):
+    """`serve` on the reference's weights (and, for Whisper, the
+    reference's frames from PRNGKey(seed + 1)) gives the reference's
+    tokens."""
     name, jcfg, cfg, _, params = model
     kw = dict(SLICE[name], gen=4, seed=0)
-    res = serve_lib.serve(cfg, params=params, device="cpu", **kw)
+    frames = None
+    if cfg.frontend == "frames":
+        frames = convert.to_torch(jax.random.normal(
+            jax.random.PRNGKey(1), (kw["batch"], cfg.encoder_seq,
+                                    cfg.d_model)).astype(jnp.bfloat16),
+            "cpu")
+    res = serve_lib.serve(cfg, params=params, device="cpu", frames=frames,
+                          **kw)
     want = jax_serve.serve(jcfg, **kw)
     np.testing.assert_array_equal(res["generated"], want["generated"])
     assert res["generated"].shape == (kw["batch"], kw["gen"])
@@ -323,21 +375,24 @@ def test_cpu_routes(model):
     no kernel is launched."""
     name, _, cfg, _, params = model
     toks = torch.tensor(_prompts(cfg, name))
+    frames = _tt(_frames(cfg, toks.shape[0]))
     kern.reset_launches()
     with torch.inference_mode():
         with pytest.raises(ValueError, match="impl='kernel' needs CUDA"):
-            tfm.prefill(cfg, params, toks, impl="kernel")
-        a, _ = tfm.prefill(cfg, params, toks)
-        b, _ = tfm.prefill(cfg, params, toks, impl="ref")
+            tfm.prefill(cfg, params, toks, frames, impl="kernel")
+        a, _ = tfm.prefill(cfg, params, toks, frames)
+        b, _ = tfm.prefill(cfg, params, toks, frames, impl="ref")
     assert torch.equal(a, b)
     assert sum(kern.LAUNCHES.values()) == 0
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "gemma3-12b", "xlstm-125m"])
+@pytest.mark.parametrize("name", sorted(SLICE))
 def test_chip_smoke_f32_logits_is_the_f32_prefill(name):
     """chip_smoke.py's yardstick for the bf16 gates, `f32_logits` (one
-    block's weights widened to f32 at a time), is bitwise the plain
-    route's prefill of the whole tree widened to f32."""
+    block's weights widened to f32 at a time, and an MoE block's experts
+    a few at a time: here one by one, as Kimi K2's 384 experts are on
+    the card), is bitwise the plain route's prefill of the whole tree
+    widened to f32."""
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke
@@ -347,11 +402,14 @@ def test_chip_smoke_f32_logits_is_the_f32_prefill(name):
     cfg = dataclasses.replace(reduced(get_config(name)), dtype="bfloat16")
     params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
     toks = torch.tensor(_prompts(cfg, name))
-    got = chip_smoke.f32_logits(cfg, params, toks)
+    frames = serve_lib.draw_frames(cfg, toks.shape[0], 0, "cpu")
+    per_expert = 3 * cfg.d_model * cfg.d_ff * 4
+    got = chip_smoke.f32_logits(cfg, params, toks, frames,
+                                widen_bytes=per_expert)
     with torch.inference_mode():
         want = tfm.prefill(dataclasses.replace(cfg, dtype="float32"),
                            tree_map(lambda a: a.float(), params), toks,
-                           impl="ref")[0]
+                           frames, impl="ref")[0]
     assert got.dtype == want.dtype == torch.float32
     assert torch.equal(got, want)
 
@@ -376,9 +434,10 @@ def test_bf16_round_trip_through_convert():
         np.testing.assert_array_equal(g, np.asarray(w, np.float32))
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "xlstm-125m", "gemma3-12b"])
+@pytest.mark.parametrize("name", sorted(ARCHS))
 def test_init_params_tree_matches_reference(name):
-    """init_params draws the reference's tree: keys, shapes and dtypes."""
+    """init_params draws the reference's tree for every arch: keys,
+    shapes and dtypes."""
     cfg = reduced(get_config(name))
     params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
     jshapes = jax.eval_shape(
@@ -389,14 +448,6 @@ def test_init_params_tree_matches_reference(name):
     want = jax.tree.map(lambda x: (tuple(x.shape), str(x.dtype)), jshapes)
     assert got == want
     assert float(params["stages"][0]["pos0"]["norm1"].abs().max()) == 0.0
-
-
-@pytest.mark.parametrize("name", ["jamba-v0.1-52b", "mixtral-8x22b",
-                                  "whisper-large-v3"])
-def test_unported_blocks_raise(name):
-    cfg = reduced(get_config(name))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.init_params(cfg, torch.Generator().manual_seed(0))
 
 
 def test_serve_cli_on_cpu(capsys):

@@ -1,10 +1,13 @@
 """The port's training loss (`repro_torch.models.transformer.train_loss`)
-against the reference's, on the CPU: reduced llama3-8b and reduced
-xlstm-125m (f32) with the reference's weights through `convert`. The
-loss with and without an embedding perturbation within rtol 1e-5; its
-gradients w.r.t. the parameters and the perturbation within rtol 1e-4 /
-atol 1e-5 for llama3-8b.  Reduced xLSTM's f32 gradients carry about
-1e-4 of each leaf's largest magnitude of rounding in either package (an
+against the reference's, on the CPU: reduced llama3-8b, xlstm-125m,
+jamba-v0.1-52b and mixtral-8x22b (f32) with the reference's weights
+through `convert`. The loss with and without an embedding perturbation
+within rtol 1e-5, for Jamba and Mixtral with the MoE aux loss (its
+router_aux_coef share included, the aux itself held to the
+reference's); its gradients w.r.t. the parameters and the perturbation
+within rtol 1e-4 / atol 1e-5 for llama3-8b, Jamba and Mixtral.  Reduced
+xLSTM's f32 gradients carry about 1e-4 of each leaf's largest magnitude
+of rounding in either package (an
 f64 run of the port reads the reference's f32 gradients up to 1.3e-4
 from it, the port's up to 2.0e-4), so they miss 1e-4 / 1e-5
 elementwise (ROADMAP.md Queue 3 item 17); each of their leaves, the
@@ -30,7 +33,9 @@ from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
-ARCHS = ("llama3-8b", "xlstm-125m")
+ARCHS = ("llama3-8b", "xlstm-125m", "jamba-v0.1-52b", "mixtral-8x22b")
+# the archs whose gradients are held elementwise at GRAD_TOL
+ELEMENTWISE = ("llama3-8b", "jamba-v0.1-52b", "mixtral-8x22b")
 B, S = 2, 33
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 # reduced xLSTM, per leaf: max|port - reference| / max|reference| (read
@@ -76,6 +81,12 @@ def test_loss_with_and_without_perturbation(setup):
                              embed_perturbation=None if p is None
                              else torch.from_numpy(p))
         np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    if cfg.n_experts:
+        _, jaux, _ = jax_tfm.forward(jcfg, jparams, jnp.asarray(toks[:, :-1]))
+        _, aux, _ = tfm.forward(cfg, params, torch.from_numpy(toks[:, :-1]),
+                                impl="ref")
+        assert float(aux) > 0
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
 
 
 def _grads(cfg, params, toks, pert):
@@ -121,7 +132,7 @@ def test_gradients_wrt_params_and_perturbation(setup, monkeypatch):
         [np.asarray(jg[1], np.float64)]
     got = _grads(cfg, params, toks, torch.from_numpy(pert))
     assert len(got) == len(want)
-    if cfg.name.startswith("llama3-8b"):
+    if cfg.name.startswith(ELEMENTWISE):
         for a, b in zip(got, want):
             np.testing.assert_allclose(a, b, **GRAD_TOL)
         return

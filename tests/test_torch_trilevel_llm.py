@@ -8,7 +8,8 @@ token batch, at the reference's `tests/test_fed.py::_setup` (N = 4, B =
 off) in both cut modes, and at the 2-layer xLSTM of
 `tests/test_launchers.py::_tiny_cfg`, which puts the sLSTM loop under
 second-order AD (in f32: the reference's `_tiny_cfg` is bf16, whose
-rounding alone moves leaves by 4e-3).  step -> refresh -> step: every
+rounding alone moves leaves by 4e-3); one step of a 2-layer hybrid
+Mamba + MoE model.  step -> refresh -> step: every
 state leaf within 1e-4 of that leaf's largest magnitude, cut `active`
 and `age` exact, except four cut blocks (`COND_LEAVES`, ROADMAP.md
 Queue 3 item 16), each held to its own limit for each case
@@ -112,7 +113,24 @@ def tiny_dense_cfgs():
             build(BlockSpec, ModelConfig, uniform_stages))
 
 
+def tiny_hybrid_cfgs():
+    """A 2-layer d_model=64 hybrid (Jamba-family) model, f32, in both
+    packages: a Mamba + MoE block and an attention + dense block."""
+    def build(block, stage, config):
+        return config(name="hybrid-tiny", arch_type="hybrid", n_layers=2,
+                      d_model=64, n_heads=2, n_kv_heads=2, d_head=32,
+                      d_ff=64, vocab_size=128, n_experts=4, top_k=2,
+                      ssm_d_state=8, ssm_chunk=16, dtype="float32",
+                      stages=(stage((block(mixer="mamba", mlp="moe"),
+                                     block()), 1),)).validate()
+
+    return (build(JBlockSpec, JStage, JModelConfig),
+            build(BlockSpec, Stage, ModelConfig))
+
+
 def configs(arch):
+    if arch == "hybrid-tiny":
+        return tiny_hybrid_cfgs()
     if arch == "xlstm-tiny":
         return tuple(dataclasses.replace(c, dtype="float32")
                      for c in tiny_cfgs())
@@ -207,6 +225,25 @@ def test_step_refresh_step_matches_reference(arch, cut_mode, request):
     assert float(got.cuts_i.active.sum()) >= 1
     assert int(got.t) == 2
     assert_states_close(got, want, COND_TOL[(arch, cut_mode)])
+
+
+def test_hybrid_mamba_moe_step_matches_reference():
+    """One AFTO step of a hybrid Mamba + MoE model (the worker gradients
+    through the scan, the routing and the capacity's drops under the
+    step's vmap over workers): every state leaf within 1e-4 of its
+    largest magnitude; the MoE aux loss is part of each worker's f1."""
+    jcfg, cfg, jhyper, hyper, jstate, state, jbatch, batch = setup(
+        "hybrid-tiny", "sketch")
+    active = np.array([1.0, 1.0, 0.0, 1.0], np.float32)
+    want = jax.jit(lambda st, b, a: jax_fed.afto_llm_step(
+        jcfg, jhyper, st, b, a))(jstate, jbatch, jnp.asarray(active))
+    got = fed.afto_llm_step(cfg, hyper, state, batch,
+                            torch.as_tensor(active))
+    assert int(got.t) == 1
+    assert_states_close(got, want, (LEAF_TOL,) * len(COND_LEAVES))
+    moved = [not torch.equal(a, b) for a, b in
+             zip(tree_leaves(state.X3), tree_leaves(got.X3))]
+    assert all(moved)
 
 
 def test_f32_perturbation_brings_the_x2_blocks_within_1e_4():
