@@ -274,6 +274,21 @@ file; exits non-zero, printing no result, without them.  Phases:
    prefill's model-FLOP rate (`step_flops`) against the bf16 peak,
    beside the card's name and power limit.
 
+18. The dry-run against the card (after phase 16): the counts of
+   `repro_torch.launch.dryrun.run_one` on a 1 x 1 mesh (meta tensors,
+   traced in two processes started before phase 16, `start_counts`)
+   for Llama-3 8B's bf16 prefill at (4, 1024) on the kernel and the
+   plain route, Jamba's one-period prefill at (4, 1024), xLSTM-125M's
+   AFTO step and refresh at phase 16 (a)'s settings and the one-layer
+   Llama-3 8B step and refresh at phase 16 (b)'s (the refresh only
+   where the count is under DRYRUN_REFRESH_FITS), each held to the card:
+   the counted argument bytes within DRYRUN_ARG_TOL of the bytes the
+   call's arguments keep resident, the counted temp within
+   DRYRUN_TEMP_TOL of `torch.cuda.max_memory_allocated()` above them
+   (from `reset_peak_memory_stats()` just before the call), and the
+   roofline's compute term no longer than the call; each reading beside
+   the card's name and power limit.
+
 Each phase ends with a `[clock]` line (its seconds and the script's),
 also on standard error; past WATCHDOG_S seconds every thread's stack
 goes to standard error.  The line before the nvidia-smi line is a JSON
@@ -285,6 +300,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import platform
 import subprocess
 import sys
@@ -4812,6 +4828,269 @@ def training_phase(rows):
           "the budget is read, not gated)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the dry-run's count held to the card
+# ---------------------------------------------------------------------------
+
+# the gates: the count's argument bytes within 1% of the bytes the card
+# holds resident for the call, its temp within 10% + 64 MiB of the
+# card's peak above them, and its compute term no longer than the call
+DRYRUN_ARG_TOL = 0.01
+DRYRUN_TEMP_TOL = (0.10, 64 * 2 ** 20)
+# the Llama-3 8B refresh runs when the count says it fits below this
+DRYRUN_REFRESH_FITS = 70 * 2 ** 30
+
+
+def resident(build):
+    """(build(), the bytes it leaves allocated on the card)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out = build()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_allocated() - base
+
+
+def held_to_count(label, row, held, fn):
+    """Run fn() once from a reset peak and hold the card's readings to
+    the dry-run row (a 1 x 1 mesh: the whole step); `held` is the bytes
+    the call's arguments keep on the card."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    temp = torch.cuda.max_memory_allocated() - base
+    del out
+    arg_err = abs(row["arg_bytes"] - held) / held
+    temp_err = abs(row["temp_bytes"] - temp)
+    rel, slack = DRYRUN_TEMP_TOL
+    print(f"  18 {label}: arguments counted {row['arg_bytes'] / 2 ** 30:.3f}"
+          f" GiB, resident {held / 2 ** 30:.3f} GiB (off {arg_err:.2e}); "
+          f"temp counted {row['temp_bytes'] / 2 ** 30:.3f} GiB, measured "
+          f"{temp / 2 ** 30:.3f} GiB (off {temp_err / 2 ** 20:.1f} MiB); "
+          f"compute term {row['compute_s'] * 1e3:.2f} ms, the call "
+          f"{secs * 1e3:.1f} ms; memory term {row['memory_s'] * 1e3:.2f} ms;"
+          f" {CARD}", flush=True)
+    check(arg_err <= DRYRUN_ARG_TOL,
+          f"18 {label}: counted arguments off by {arg_err:.2e}")
+    check(temp_err <= rel * temp + slack,
+          f"18 {label}: counted temp {row['temp_bytes']:.0f} B against "
+          f"{temp} B measured")
+    check(row["compute_s"] <= secs,
+          f"18 {label}: compute term {row['compute_s']:.4f} s above the "
+          f"measured {secs:.4f} s")
+    return {"arg_bytes": row["arg_bytes"], "resident": held,
+            "temp_bytes": row["temp_bytes"], "temp_measured": temp,
+            "compute_s": row["compute_s"], "seconds": secs}
+
+
+def phase18_cases():
+    """(label, config, shape, step, route, `launch.train`'s argv or None)
+    of each step phase 18 holds, in order: the shapes, dtype and
+    route of phases 8, 17 and 16."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.models.config import BlockSpec, uniform_stages
+
+    llama = get_config("llama3-8b")
+    one_layer = dc.replace(llama, n_layers=1,
+                           stages=uniform_stages(1, BlockSpec())).validate()
+    lr = ("--lr", str(TRAIN_LR))
+    largs = ("--workers", "2", "--batch", "1", "--seq", "129",
+             "--sketch-r", "4096") + lr
+    xname = "xLSTM-125M AFTO (N 4, batch 2, sequence 129, sketch r 256)"
+    lname = ("Llama-3 8B widths, one layer, AFTO (N 2, batch 1, sequence "
+             "129, sketch r 4096)")
+    prompt = InputShape("prefill (4, 1024)", 1024, 4, "prefill")
+    return [
+        ("Llama-3 8B bf16 prefill (4, 1024), kernel route", llama, prompt,
+         "prefill", "kernel", None),
+        ("Llama-3 8B bf16 prefill (4, 1024), ref route", llama, prompt,
+         "prefill", "ref", None),
+        ("Jamba v0.1 one-period prefill (4, 1024)",
+         phase17_cfgs("jamba-v0.1-52b")[0], prompt, "prefill", "kernel",
+         None),
+        (f"{xname}: step", get_config("xlstm-125m"),
+         InputShape("xlstm", 129, 8, "train"), "afto_train", "ref", lr),
+        (f"{xname}: refresh", get_config("xlstm-125m"),
+         InputShape("xlstm", 129, 8, "train"), "cut_refresh", "ref", lr),
+        (f"{lname}: step", one_layer, InputShape("llama", 129, 2, "train"),
+         "afto_train", "ref", largs),
+        (f"{lname}: refresh", one_layer,
+         InputShape("llama", 129, 2, "train"), "cut_refresh", "ref", largs),
+    ]
+
+
+def count_hyper(args):
+    """The `FedHyper` that `launch.train` builds from `args`
+    (`train._afto_setup`'s; phase 18 checks that they are equal)."""
+    from repro_torch.fed.trilevel_llm import FedHyper
+    return FedHyper(n_workers=args.workers, cut_mode=args.cut_mode,
+                    sketch_r=args.sketch_r, p_max=2, k_inner=1, remat=False,
+                    eta_x=args.lr, eta_z=args.lr)
+
+
+def dryrun_counts(labels, path):
+    """`dryrun.run_one` on a 1 x 1 mesh for the phase-18 cases named in
+    `labels`, on meta tensors (no card), written to `path` as JSON."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    rows = {}
+    for label, cfg, shape, step, route, argv in phase18_cases():
+        if label in labels:
+            hyper = None if argv is None else count_hyper(train_args(*argv))
+            rows[label] = dryrun.run_one(cfg, shape, make_debug_mesh(1, 1),
+                                         step=step, route=route,
+                                         hyper=hyper, verbose=False)
+    with open(path, "w") as f:
+        json.dump(rows, f)
+
+
+def start_counts():
+    """Start phase 18's counts in two processes that run beside the
+    phases before it (tracing xLSTM's refresh on meta tensors takes
+    most of a minute): the xLSTM refresh in one, the rest in the other.
+    Returns their handle for `collect_counts`."""
+    import atexit
+    import os
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="phase18_")
+    labels = [c[0] for c in phase18_cases()]
+    groups = [[x for x in labels if x.startswith("xLSTM") and
+               x.endswith("refresh")]]
+    groups.append([x for x in labels if x not in groups[0]])
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for i, group in enumerate(groups):
+        code = (f"import sys; sys.path[:0] = [{str(SRC)!r}, {str(ROOT)!r}]; "
+                f"import chip_smoke as c; c.dryrun_counts({group!r}, "
+                f"{tmp + f'/counts{i}.json'!r})")
+        log = open(f"{tmp}/counts{i}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, "-c", code],
+                                       stdout=log, stderr=subprocess.STDOUT,
+                                       env=env), log, i))
+
+    def stop():
+        for proc, log, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+    atexit.register(stop)
+    return tmp, procs, stop
+
+
+def collect_counts(started, timeout=600.0):
+    """The rows of `start_counts`' processes, waiting for them."""
+    import shutil
+
+    tmp, procs, stop = started
+    rows = {}
+    try:
+        for proc, _, i in procs:
+            try:
+                proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                fail(f"phase 18: the dry-run counts {i} ran past {timeout} s")
+            if proc.returncode != 0:
+                with open(f"{tmp}/counts{i}.log") as f:
+                    fail(f"phase 18: the dry-run counts {i} failed:\n"
+                         + f.read()[-3000:])
+            with open(f"{tmp}/counts{i}.json") as f:
+                rows.update(json.load(f))
+    finally:
+        stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
+def phase18_call(cfg, step, route, made):
+    """The call phase 18 measures: `made` holds (params, tokens) for a
+    prefill, (hyper, state, batch, active) for a fed step.  (A function
+    of its own, so that nothing of one case outlives it.)"""
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+
+    if step == "prefill":
+        return lambda: tfm.prefill(cfg, made[0], made[1], impl=route)
+    hyper, state, batch, active = made
+    if step == "cut_refresh":
+        return lambda: train.cut_refresh_llm(cfg, hyper, state, batch)
+    return lambda: train.afto_llm_step(cfg, hyper, state, batch, active)
+
+
+def dryrun_phase(started):
+    """Phase 18: `repro_torch.launch.dryrun.run_one`'s count on a 1 x 1
+    mesh (computed beside the earlier phases, `start_counts`) against the
+    card, for steps that earlier phases run at their shapes, dtype and
+    route."""
+    import gc
+    import torch
+    from repro_torch.data.synthetic import make_token_stream
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    counts = collect_counts(started)
+    waited = time.perf_counter() - t0
+    readings = {}
+
+    def tokens(cfg, *shape):
+        return torch.as_tensor(make_token_stream(
+            cfg.vocab_size, math.prod(shape[:-1]), shape[-1]),
+            device="cuda").reshape(shape)
+
+    cases = phase18_cases()
+    built = {}
+    for label, cfg, shape, step, route, argv in cases:
+        row = counts[label]
+        if step == "cut_refresh" and \
+                row["arg_bytes"] + row["temp_bytes"] > DRYRUN_REFRESH_FITS:
+            print(f"  18 {label}: counted "
+                  f"{(row['arg_bytes'] + row['temp_bytes']) / 2 ** 30:.1f} "
+                  "GiB, above the 70 GiB the phase runs it under",
+                  flush=True)
+            continue
+        key = (cfg, shape, argv)
+        if key not in built:
+            built.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            if argv is None:
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                built[key] = resident(lambda: (
+                    tfm.init_params(cfg, gen, device="cuda"),
+                    tokens(cfg, shape.global_batch, shape.seq_len)))
+            else:
+                args = train_args(*argv)
+                n, b = args.workers, args.batch
+                built[key] = resident(lambda: (
+                    *train._afto_setup(cfg, args)[:2],
+                    {"tokens": tokens(cfg, n, b, args.seq),
+                     "val_tokens": tokens(cfg, n, b, args.seq)},
+                    torch.ones(n, device="cuda")))
+                check(built[key][0][0] == count_hyper(args),
+                      f"18 {label}: the counted hyper is not launch.train's")
+        readings[label] = held_to_count(label, row, built[key][1],
+                                        phase18_call(cfg, step, route,
+                                                     built[key][0]))
+    built.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 18 (the dry-run against the card): "
+          f"{time.perf_counter() - t0:.1f} s, {waited:.1f} s of it waiting "
+          "for the counts", flush=True)
+    return readings
+
+
 # past this many seconds every thread's stack goes to standard error, so
 # that a run stopped at its time limit shows where it was
 WATCHDOG_S = 900.0
@@ -4872,7 +5151,11 @@ def main() -> None:
     stream_spec = clocked("phase 12", stream_phase, rows, ww_specs)
     async_spec = clocked("phase 13", async_phase, rows, ww_specs, ww_ms)
     clocked("phase 14", mesh_phase, rows, ww_ms, ww_specs)
+    # phase 18's counts run on meta tensors in two processes beside phase
+    # 16
+    counting = start_counts()
     clocked("phase 16", training_phase, rows)
+    clocked("phase 18", dryrun_phase, counting)
 
     def late_profiles():
         # under the profiler after every timed run: it slows later host

@@ -16,23 +16,47 @@ A spec is a tuple of mesh-axis names per leading dimension, as a
 `PartitionSpec`: `(*lead, "worker")` for a leaf whose leading worker
 axis splits over the mesh, `(*lead,)` for a replicated one.  `lead`
 holds the entries outside the worker axis, e.g. `(None,)` for a
-sweep's run axis.  The LLM rules of the reference module (`param_specs`,
-`batch_spec`, `cache_specs`) wait for the LLM training path (ROADMAP.md
-Queue 1, item 9).
+sweep's run axis.
+
+The LLM half (`param_specs`, `data_axis`, `batch_spec`, `cache_specs`)
+is the reference's mesh partitioning of the model zoo, over the axes of
+`launch.mesh.make_production_mesh`:
+
+  data  : federated workers / data parallel (batch, worker-stacked vars)
+  model : tensor parallel (heads, d_ff, experts, vocab, d_inner)
+  pod   : optional outer axis; worker stacks shard over ('pod','data')
+
+Its specs are tuples with one entry per dimension: an axis name, a
+tuple of axis names, or None (replicated).  Rules are name-based on the
+last path segment of each leaf.  Every parameter inside a stage carries
+a leading repeat axis (R, ...), so its base rank is `leaf.dim() -
+len(stack_axes) - 1`, while top-level parameters (embed, lm_head, norms,
+enc_pos) have none; name plus rank tells the dense MLP's `wo` (R,f,d)
+from attention's `wo` (R,H,hd,d) and the MoE's `wo` (R,E,f,d).  A
+dimension its mesh axis does not divide falls back to replication
+(xlstm-125m has 4 heads against a 16-way model axis).  The specs are
+read by the dry-run (`launch.dryrun`), which counts each device's share
+of every leaf from them; placing tensors by them on a device mesh (the
+reference's `to_named`) waits for a real device mesh (ROADMAP.md Queue
+1, item 9).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+import math
+from typing import Any, List, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.core.types import (AFTOState, FlatCuts, InnerState2,
                                     InnerState3, TrilevelProblem)
 from repro_torch.fed.runtime.membership import (ShardView, assemble_state,
                                                 make_views)
 from repro_torch.launch.mesh import WORKER_AXIS
-from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.utils.tree import (DictKey, GetAttrKey, tree_flatten,
+                                    tree_leaves_with_path, tree_map,
+                                    tree_unflatten)
 
 # AFTOState fields whose leaves lead with the worker axis (N, ...)
 _WORKER_STACKED = {"X1", "X2", "X3", "theta"}
@@ -189,3 +213,215 @@ def gather_state(local: AFTOState, mesh, spec_i, spec_ii,
         return unshard_state(locals_, spec_i, spec_ii)
     return torch.func.vmap(
         lambda ls: unshard_state(ls, spec_i, spec_ii))(locals_)
+
+
+# ---------------------------------------------------------------------------
+# the LLM zoo on the production meshes
+# ---------------------------------------------------------------------------
+
+# parameters that live OUTSIDE stages (no repeat axis), with full specs
+_TOP_LEVEL = {
+    "embed": ("model", None),
+    "lm_head": (None, "model"),
+    "enc_pos": (None, None),
+    "enc_norm": (None,),
+    "final_norm": (None,),
+}
+
+# stage parameters: spec per (name, base_rank)
+_STAGE_RULES = {
+    # norms
+    ("norm1", 1): (None,), ("norm2", 1): (None,), ("norm_x", 1): (None,),
+    ("q_norm", 1): (None,), ("k_norm", 1): (None,),
+    # attention (+ cross)
+    ("wq", 3): (None, "model", None), ("wk", 3): (None, "model", None),
+    ("wv", 3): (None, "model", None), ("wo", 3): ("model", None, None),
+    ("xwq", 3): (None, "model", None), ("xwk", 3): (None, "model", None),
+    ("xwv", 3): (None, "model", None), ("xwo", 3): ("model", None, None),
+    # dense GLU mlp
+    ("wi", 2): (None, "model"), ("wg", 2): (None, "model"),
+    ("wo", 2): ("model", None),
+    # MoE (expert-parallel over the leading E dim; MoE `wo` (E,f,d) is
+    # rank-3 like attention's and shares its ("model",None,None) spec)
+    ("router", 2): (None, "model"),
+    ("wi", 3): ("model", None, None), ("wg", 3): ("model", None, None),
+    # mamba
+    ("in_proj", 2): (None, "model"), ("conv_w", 2): (None, "model"),
+    ("conv_b", 1): ("model",), ("xproj", 2): ("model", None),
+    ("dt_bias", 1): ("model",), ("a_log", 2): ("model", None),
+    ("d_skip", 1): ("model",), ("out_proj", 2): ("model", None),
+    # xlstm (mlstm's input gate `wi` (d,H) hits the rank-2 rule above)
+    ("wf", 2): (None, "model"), ("fb", 1): (None,),
+    ("wz", 3): (None, "model", None), ("wo_gate", 3): (None, "model", None),
+    ("rz", 3): ("model", None, None),
+}
+
+_HEAD_TENSORS = {"wq", "wk", "wv", "xwq", "xwk", "xwv", "wz", "wo_gate"}
+_HEAD_OUT_TENSORS = {"wo", "xwo"}
+
+
+def leaf_name(path) -> str:
+    """The last dict key or field name of a `tree_leaves_with_path`
+    path."""
+    for entry in reversed(path):
+        if isinstance(entry, DictKey):
+            return str(entry.key)
+        if isinstance(entry, GetAttrKey):
+            return str(entry.name)
+    return ""
+
+
+def axis_size(axis, mesh_shape: dict) -> int:
+    """The number of shards of a spec entry (1 for None)."""
+    if axis is None:
+        return 1
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    return math.prod(mesh_shape[a] for a in axes)
+
+
+def _divisible(dim: int, axis, mesh_shape: dict) -> bool:
+    return dim % axis_size(axis, mesh_shape) == 0
+
+
+def map_with_path(fn, tree):
+    """fn(path, leaf) over every leaf, in a tree of `tree`'s structure."""
+    tdef = tree_flatten(tree)[1]
+    return tree_unflatten(tdef, [fn(p, x)
+                                 for p, x in tree_leaves_with_path(tree)])
+
+
+def param_specs(params, mesh, *, stack_axes: Tuple = (),
+                shard_head_dim_fallback: bool = False) -> Any:
+    """The spec tree of a model param tree.
+
+    stack_axes: shardings for extra leading axes prepended OUTSIDE the
+    per-stage repeat axis, e.g. ('data',) or (('pod','data'),) for the
+    federated worker axis.
+
+    shard_head_dim_fallback: when the head count doesn't divide the model
+    axis (whisper: 20 heads on a 16-way axis) shard head_dim instead of
+    replicating; the attention contraction then sums over the model axis
+    (a perf lever; off by default = the faithful baseline)."""
+    mesh_shape = mesh.shape
+    n_stack = len(stack_axes)
+
+    def spec_for(path, leaf):
+        name = leaf_name(path)
+        if name in _TOP_LEVEL:
+            base = list(_TOP_LEVEL[name])
+            n_lead = leaf.dim() - len(base) - n_stack
+            lead = list(stack_axes) + [None] * n_lead
+        else:
+            base_rank = leaf.dim() - n_stack - 1     # strip worker + repeat
+            base = list(_STAGE_RULES.get((name, base_rank),
+                                         (None,) * max(base_rank, 0)))
+            lead = list(stack_axes) + [None]         # repeat axis unsharded
+        full = lead + base
+        for i, ax in enumerate(full):
+            if ax is not None and not _divisible(leaf.shape[i], ax,
+                                                 mesh_shape):
+                full[i] = None
+        if shard_head_dim_fallback and (
+                name in _HEAD_TENSORS or name in _HEAD_OUT_TENSORS) \
+                and leaf.dim() - n_stack - 1 == 3:
+            # (..., d, H, hd) or (..., H, hd, d): if H failed
+            # divisibility, try hd instead
+            if name in _HEAD_TENSORS:
+                h_i, hd_i = leaf.dim() - 2, leaf.dim() - 1
+            else:
+                h_i, hd_i = leaf.dim() - 3, leaf.dim() - 2
+            if full[h_i] is None and _divisible(leaf.shape[hd_i], "model",
+                                                mesh_shape):
+                full[hd_i] = "model"
+        return tuple(full)
+
+    return map_with_path(spec_for, params)
+
+
+def data_axis(mesh):
+    """The axis (or axes) that batch/worker dims shard over."""
+    return ("pod", "data") if "pod" in mesh.axis_names else "data"
+
+
+def batch_spec(mesh, stacked: bool = False) -> Tuple:
+    """Tokens (B, S) or worker-stacked (N, b, S)."""
+    ax = data_axis(mesh)
+    return (ax, None, None) if stacked else (ax, None)
+
+
+def cache_specs(cache, mesh, batch_sharded: bool = True,
+                kv_seq_sharded: bool = False) -> Any:
+    """Decode caches: (R, B, ...) leaves; shard batch over data (when it
+    divides) and heads/d_inner dims over model by name.
+
+    kv_seq_sharded: context-parallel decode, the KV *sequence* dim
+    sharded over the data axis instead of batch (the one-token attention
+    then sums over the sharded sequence); the lever for long_500k's
+    batch of 1, which otherwise leaves the data axis idle."""
+    ax = data_axis(mesh)
+    mesh_shape = mesh.shape
+
+    def spec_for(path, leaf):
+        name = leaf_name(path)
+        spec = [None] * leaf.dim()
+        if batch_sharded and leaf.dim() >= 2:
+            spec[1] = ax                          # (R, B, ...)
+        if name in ("k", "v", "pos"):             # (R,B,W,Hkv,hd)/(R,B,W)
+            if kv_seq_sharded:
+                spec[1] = None
+                spec[2] = ax
+            if name in ("k", "v"):
+                spec[3] = "model"
+        elif name in ("xk", "xv"):                # (R,B,T,Hkv,hd)
+            spec[3] = "model"
+        elif name == "conv":                      # (R,B,K-1,di)
+            spec[3] = "model"
+        elif name == "ssm":                       # (R,B,di,dS)
+            spec[2] = "model"
+        elif name in ("c", "n", "h", "m"):        # xlstm states (R,B,H,..)
+            if leaf.dim() >= 3:
+                spec[2] = "model"
+        for i, a in enumerate(spec):
+            if a is not None and not _divisible(leaf.shape[i], a,
+                                                mesh_shape):
+                spec[i] = None
+        return tuple(spec)
+
+    return map_with_path(spec_for, cache)
+
+
+def _specs_up_to(d, specs, out: List[Tuple]) -> None:
+    if d == ("*",):
+        out.append(specs)
+    elif d[0] == "dict":
+        for k, c in zip(d[1], d[2]):
+            _specs_up_to(c, specs[k], out)
+    elif d[0] == "node":
+        children = pytree.SUPPORTED_NODES[d[1]].flatten_fn(specs)[0]
+        for c, sp in zip(d[3], children):
+            _specs_up_to(c, sp, out)
+    elif d[0] in ("list", "tuple"):
+        for c, sp in zip(d[1], specs):
+            _specs_up_to(c, sp, out)
+
+
+def spec_leaves(specs, tree) -> List[Tuple]:
+    """The specs of a spec tree for `tree`, in `tree`'s leaf order (a
+    spec is a tuple, which flattening the spec tree would take apart)."""
+    out: List[Tuple] = []
+    _specs_up_to(tree_flatten(tree)[1], specs, out)
+    return out
+
+
+def local_shape(shape, spec, mesh_shape: dict) -> Tuple[int, ...]:
+    """One device's block of a leaf of `shape` laid out by `spec`."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n // axis_size(a, mesh_shape) for n, a in zip(shape, spec))
+
+
+def local_bytes(tree, specs, mesh) -> int:
+    """The bytes one device holds of `tree` laid out by `specs`."""
+    return sum(math.prod(local_shape(x.shape, sp, mesh.shape))
+               * x.element_size()
+               for x, sp in zip(tree_flatten(tree)[0],
+                                spec_leaves(specs, tree)))

@@ -28,7 +28,8 @@ point's step is at most 2^-60 of the sum of |v| over the tree, far
 below an f32 ulp of a bucket, so the card's sketch is the correctly
 rounded sum up to that step, where the CPU's carries f32 rounding.  On
 the card a row holding a non-finite value sketches to NaN in every
-bucket (decided on the device: the host never waits on it).
+bucket (decided on the device: the host never waits on it).  Meta
+tensors (`launch.dryrun`) take the card's path.
 """
 from __future__ import annotations
 
@@ -111,7 +112,9 @@ def _accumulate(rows, seeds, r: int) -> torch.Tensor:
     seeds[i] (see the module docstring for the two accumulations)."""
     dev = rows[0].device
     b = rows[0].shape[0]
-    if dev.type == "cuda":
+    # the card's path; meta tensors (the dry-run's) take it too, so that
+    # the dry-run counts what the card runs
+    if dev.type != "cpu":
         scale, finite = _fixed_point_scale(rows)
         acc = torch.zeros((b, r), dtype=torch.int64, device=dev)
         for x, s in zip(rows, seeds):

@@ -42,8 +42,21 @@ LAUNCHES: collections.Counter = collections.Counter()
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+# Counters of the work a kernel would do on meta tensors: each has
+# `kernel_work(name, flops, nbytes)` (`launch.roofline.Counter` adds
+# itself while it is active).
+WORK_SINKS: list = []
+
+
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def meta_work(name: str, flops: int, nbytes: int) -> None:
+    """Report a kernel's work on meta tensors, where nothing is built or
+    launched, to every active counter."""
+    for sink in WORK_SINKS:
+        sink.kernel_work(name, flops, nbytes)
 
 
 # ---------------------------------------------------------------------------

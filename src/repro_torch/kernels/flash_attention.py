@@ -23,15 +23,18 @@ Given CUDA tensors, `flash_attention` launches the routed kernel on the
 current stream and counts the launch in `cut_eval.LAUNCHES` under the
 route's name; given CPU tensors it runs the plain version.  There is no
 other route and no fallback: a CUDA tensor launches the routed kernel or
-raises.  Ragged S and T need no padding.  The kernels are forward-only: a CUDA tensor
-that a gradient can flow through (one that requires grad in grad mode,
-or one inside a `torch.func` transform) raises
-(`cut_eval.forward_only`).
+raises.  Given meta tensors (the dry-run's), it builds and launches
+nothing: it reports the routed kernel's `work` to the active counters
+(`cut_eval.meta_work`) and returns an empty output.  Ragged S and T
+need no padding.  The kernels are forward-only: a CUDA tensor that a
+gradient can flow through (one that requires grad in grad mode, or one
+inside a `torch.func` transform) raises (`cut_eval.forward_only`).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -85,12 +88,37 @@ def _check(q, k, v):
                          f"over {k.shape[2]} kv heads")
 
 
+def causal_pairs(s: int, t: int, window: int) -> int:
+    """Query-key pairs a causal (windowed) attention of these lengths
+    computes: query i sees keys max(0, i - window + 1) .. min(i, T - 1)."""
+    q = np.arange(s, dtype=np.int64)
+    hi = np.minimum(q, t - 1)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def work(q_shape, t: int, hkv: int, causal: bool, window: int, dtype):
+    """(FLOPs, bytes) of one call: q k^T and p v over the pairs the
+    masks leave (a non-causal call is unmasked), q, k, v read and the
+    output written once (`chip_smoke.flash_work`'s counts)."""
+    b, s, h, hd = q_shape
+    es = dtype.itemsize
+    pairs = causal_pairs(s, t, window) if causal else s * t
+    return (4 * hd * pairs * b * h,
+            (2 * b * s * h * hd + 2 * b * t * hkv * hd) * es)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B,S,H,hd), k/v: (B,T,Hkv,hd) -> (B,S,H,hd) in q's dtype."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     _kern.forward_only("flash_attention", (q, k, v))
+    if q.is_meta:
+        _kern.meta_work(flash_route(q.dtype, q.shape[3]),
+                        *work(q.shape, k.shape[1], k.shape[2], causal,
+                              window, q.dtype))
+        return torch.empty_like(q)
     lib = build.load()
     b, s, h, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]

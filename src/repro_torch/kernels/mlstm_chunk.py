@@ -22,7 +22,10 @@ Given CUDA tensors, `mlstm_chunk` launches the routed kernel on the
 current stream and counts the call in `cut_eval.LAUNCHES` under the
 route's name; given CPU tensors it runs the plain version.  There is no
 other route and no fallback: a CUDA tensor launches the routed kernel or
-raises.  Ragged L needs no padding.  The kernels are forward-only: a
+raises.  Given meta tensors (the dry-run's), it builds and launches
+nothing: it reports the routed kernel's `work` to the active counters
+(`cut_eval.meta_work`) and returns empty outputs.  Ragged L needs no
+padding.  The kernels are forward-only: a
 CUDA tensor that a gradient can flow through (one that requires grad in
 grad mode, or one inside a `torch.func` transform) raises
 (`cut_eval.forward_only`).
@@ -84,12 +87,30 @@ def _check(q, k, v, li, lf, c, n, m):
                              f"{q.device}")
 
 
+def work(q_shape, dtype):
+    """(FLOPs, bytes) of one chunk (`chip_smoke.mlstm_work`'s counts):
+    q k^T and p v over the causal pairs, k^T v, q C and q . n; q/k/v,
+    the gates and the state read once, y and the new state written
+    once."""
+    b, h, l, hd = q_shape
+    es = dtype.itemsize
+    bh = b * h
+    flops = bh * (4 * hd * l * (l + 1) // 2 + 4 * l * hd * hd + 4 * l * hd)
+    nbytes = bh * (4 * l * hd * es + 2 * l * 4 + 2 * (hd * hd + hd + 1) * 4)
+    return flops, nbytes
+
+
 def mlstm_chunk(q, k, v, li, lf, c, n, m):
     """One chunk for all (batch, head) pairs -> (y, c', n', m')."""
     _check(q, k, v, li, lf, c, n, m)
     if q.device.type == "cpu":
         return ref.mlstm_chunk_ref(q, k, v, li, lf, c, n, m)
     _kern.forward_only("mlstm_chunk", (q, k, v, li, lf, c, n, m))
+    if q.is_meta:
+        b, h, l, hd = q.shape
+        _kern.meta_work(mlstm_route(q.dtype, hd, l), *work(q.shape, q.dtype))
+        return (torch.empty_like(q),
+                *(torch.empty_like(t) for t in (c, n, m)))
     lib = build.load()
     b, h, l, hd = q.shape
     name = mlstm_route(q.dtype, hd, l)

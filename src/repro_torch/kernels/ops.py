@@ -38,14 +38,18 @@ def cut_eval(a, v, c, active, impl: str = None):
     return (raw - c) * active
 
 
-def route(a, impl):
+def route(a, impl, meta: bool = False):
     """The route for `impl` on a's device, "kernel" or "ref"; raises on
-    an unknown impl and on impl="kernel" off the card."""
+    an unknown impl and on impl="kernel" off the card.  `meta`: the
+    caller's kernel has a meta branch (the attention and mLSTM kernels
+    count their work there, for the dry-run, and launch nothing), so
+    impl="kernel" takes meta tensors too; impl=None routes them to
+    "ref", as CPU tensors."""
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
     if impl is None:
         return "kernel" if a.is_cuda else "ref"
-    if impl == "kernel" and not a.is_cuda:
+    if impl == "kernel" and not (a.is_cuda or (meta and a.is_meta)):
         raise ValueError("impl='kernel' needs CUDA tensors; the CUDA "
                          "kernels do not run on the CPU")
     return impl
@@ -170,7 +174,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
             f"got q seq len {s} (block_q={bq}, padded {s_pad}) and "
             f"k/v seq len {t} (block_k={bk}, padded {t_pad}); pad the "
             "inputs to block multiples or use causal=True")
-    if route(q, impl) == "ref":
+    if route(q, impl, meta=True) == "ref":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return _flash.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
@@ -181,7 +185,7 @@ def mlstm_chunk(q, k, v, li, lf, c, n, m, impl: str = None):
     """One mLSTM chunk for all (batch, head) pairs in the kernel layout
     -> (y, c', n', m'); see `kernels.mlstm_chunk`.  Routed like
     `cut_eval`."""
-    if route(q, impl) == "ref":
+    if route(q, impl, meta=True) == "ref":
         return ref.mlstm_chunk_ref(q, k, v, li, lf, c, n, m)
     return _mlstm.mlstm_chunk(q, k, v, li, lf, c, n, m)
 

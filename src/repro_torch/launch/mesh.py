@@ -30,8 +30,14 @@ machine cannot serve raises and names the alternative.  NCCL needs one
 GPU per rank; ranks that share one card use "gloo", which stages CUDA
 tensors through host memory.
 
-The production meshes and the TPU constants of the reference module wait
-for the LLM training path (ROADMAP.md Queue 1, item 9).
+The production meshes of the reference module are here as abstract
+meshes (`AbstractMesh`: axis names and sizes, no devices), which the LLM
+sharding rules (`fed.sharding.param_specs`) and the dry-run
+(`launch.dryrun`) read: `make_production_mesh()` is the reference's
+(16, 16) ("data", "model") pod and `make_production_mesh(multi_pod=
+True)` its (2, 16, 16) ("pod", "data", "model") pair of pods.  Placing
+tensors on a real `torch.distributed` device mesh of that layout waits
+for the mesh-workers slice (ROADMAP.md Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import argparse
 import dataclasses
 import datetime
 import importlib
+import math
 import os
 import pickle
 import shutil
@@ -47,7 +54,7 @@ import sys
 import tempfile
 import time
 import traceback
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -59,6 +66,43 @@ WORKER_AXIS = "worker"
 BACKENDS = ("gloo", "nccl")
 # intra-op threads of a rank: the ranks of a mesh share the host's cores
 RANK_THREADS = 1
+
+# The roofline's hardware: one NVIDIA H100 80GB HBM3 at its 700 W limit
+# (NVIDIA's data sheet, SXM part, dense rates).  Both production meshes
+# span more than one 8-GPU NVLink node on every axis, so a collective's
+# rate is the node's InfiniBand link: NDR, 400 Gb/s per GPU.
+PEAK_FLOPS_BF16 = 989e12       # FLOP/s per card, bf16 on the tensor cores
+HBM_BW = 3.35e12               # bytes/s per card
+LINK_BW = 50e9                 # bytes/s per card, NDR InfiniBand
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's layout without devices: `shape` maps each axis name to
+    its size, in order."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """Single pod: 16x16 = 256 cards (data, model).
+    Multi-pod: 2x16x16 = 512 cards (pod, data, model)."""
+    if multi_pod:
+        return AbstractMesh(("pod", "data", "model"), (2, 16, 16))
+    return AbstractMesh(("data", "model"), (16, 16))
+
+
+def make_debug_mesh(n_data: int = 2, n_model: int = 4) -> AbstractMesh:
+    """A small (data, model) mesh."""
+    return AbstractMesh(("data", "model"), (n_data, n_model))
 
 
 @dataclasses.dataclass(eq=False)

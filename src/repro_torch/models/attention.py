@@ -181,7 +181,7 @@ def self_attention(params, x, positions, *, n_kv_heads, rope_theta,
         k = rms_norm(k, params["k_norm"], norm_eps)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    if ops.route(x, kernel_impl) == "kernel":
+    if ops.route(x, kernel_impl, meta=True) == "kernel":
         o = _flash(q, k, v, causal, window)
     elif impl == "chunked" and causal:
         o = attend_chunked(q, k, v, causal=causal, window=window,
@@ -200,7 +200,7 @@ def cross_attention(params, x, enc_kv, *,
     passes "ref": one query, plain torch as in the reference)."""
     q = _project(x, params["xwq"])
     k, v = enc_kv
-    if ops.route(x, kernel_impl) == "kernel":
+    if ops.route(x, kernel_impl, meta=True) == "kernel":
         o = _flash(q, k, v, False, 0)
     else:
         o = attend(q, k, v, None)

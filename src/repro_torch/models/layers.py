@@ -5,7 +5,8 @@ Counterpart of `repro/models/layers.py`.  Initializers draw from a
 from `jax.random`; weights that must match come from the reference
 through `repro_torch.convert`).  `lead` is a tuple of leading dimensions,
 the repeats of a stage: stacked weights are drawn one slice at a time,
-so a stacked f32 draw of a whole stage never exists.
+so a stacked f32 draw of a whole stage never exists; on the meta device
+(the dry-run's) they are shapes only, and nothing is drawn.
 """
 from __future__ import annotations
 
@@ -31,6 +32,8 @@ def _stacked(draw, lead: Sequence[int], shape, dtype, device):
     if not lead:
         return draw().to(dtype)
     out = torch.empty((*lead, *shape), dtype=dtype, device=device)
+    if out.is_meta:       # shapes only: there is nothing to draw
+        return out
     flat = out.view(-1, *shape)
     for i in range(flat.shape[0]):
         flat[i] = draw()

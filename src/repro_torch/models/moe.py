@@ -88,22 +88,31 @@ def slots(flat_e, n_experts: int):
     return torch.gather(rank, 0, flat_e[None])[0].long()
 
 
-def dispatch(router_w, xf, top_k: int, capacity: int) -> Dispatch:
+def dispatch(router_w, xf, top_k: int, capacity: int,
+             held: int = 0) -> Dispatch:
     """Route the (T, d) tokens and write each kept assignment's token
-    into its (expert, slot) row of an (E, C, d) buffer."""
+    into its (expert, slot) row of an (E, C, d) buffer.
+
+    held: a shard of an expert-parallel layer holds only the first
+    `held` of the router's E experts (the dry-run's local program, whose
+    router logits span every expert); the buffer is (held, C, d) and the
+    assignments to other experts are dropped here.  0: every expert."""
     t, d = xf.shape
     e = router_w.shape[1]
+    held = held or e
     expert_idx, weight, aux = _route(router_w, xf, top_k)
     flat_e = expert_idx.reshape(-1)                       # (T*K,)
     slot = slots(flat_e, e)
     keep = slot < capacity
+    if held < e:
+        keep = keep & (flat_e < held)
     row = flat_e * capacity + slot
     # the kept rows are distinct; the dropped ones all go to a spare row
-    spare = torch.full_like(row, e * capacity)
+    spare = torch.full_like(row, held * capacity)
     contrib = xf[:, None].expand(t, top_k, d).reshape(t * top_k, d)
-    buf = xf.new_zeros((e * capacity + 1, d)).index_put(
+    buf = xf.new_zeros((held * capacity + 1, d)).index_put(
         (torch.where(keep, row, spare),), contrib)
-    return Dispatch(buf[:-1].view(e, capacity, d),
+    return Dispatch(buf[:-1].view(held, capacity, d),
                     torch.where(keep, row, torch.zeros_like(row)), keep,
                     weight.reshape(-1), aux)
 
@@ -128,12 +137,15 @@ def combine(y, disp: Dispatch, t: int, top_k: int):
 
 def moe_apply(params, x, top_k: int, capacity_factor: float = 1.25,
               act: str = "silu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,S,d) -> (out (B,S,d), aux_loss)."""
+    """x: (B,S,d) -> (out (B,S,d), aux_loss).  The capacity is that of
+    the router's E experts, also where `params` holds fewer of them
+    (`dispatch`'s `held`)."""
     b, s, d = x.shape
     t = b * s
-    e = params["wi"].shape[0]
+    e = params["router"].shape[-1]
     disp = dispatch(params["router"], x.reshape(t, d), top_k,
-                    capacity_of(t, top_k, e, capacity_factor))
+                    capacity_of(t, top_k, e, capacity_factor),
+                    held=params["wi"].shape[0])
     y = experts(params, disp.buf, act)
     return combine(y, disp, t, top_k).reshape(b, s, d).to(x.dtype), disp.aux
 

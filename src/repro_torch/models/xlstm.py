@@ -182,7 +182,7 @@ def mlstm_apply(params, x, chunk: int = 256, state=None,
     if n_chunks * cl != s:
         raise ValueError(f"mlstm_apply: sequence length {s} does not split "
                          f"into {n_chunks} equal chunks (chunk={chunk})")
-    body = _kernel_chunk if ops.route(x, impl) == "kernel" \
+    body = _kernel_chunk if ops.route(x, impl, meta=True) == "kernel" \
         else mlstm_chunk_body
     ys = []
     for i in range(n_chunks):
