@@ -172,7 +172,7 @@ file; exits non-zero, printing no result, without them.  Phases:
    counts, sim_time and max_staleness exact; final II-layer cut rows,
    gamma_k and level-2 inner state within 1e-4 of each tensor's largest
    entry), ms per master iteration beside phase 4's.  (b) A live run on
-   the kernel route (60 iterations): recorded staleness within tau, its
+   the kernel route (30 iterations): recorded staleness within tau, its
    schedule replayed through the runtime bit for bit and through
    `run_scanned` within (a)'s gate.  (c) (a)'s kernel route checkpointed every 40
    iterations, stopped after 80 and resumed by a fresh master: bit for
@@ -181,7 +181,8 @@ file; exits non-zero, printing no result, without them.  Phases:
    completes, prints its deaths and rejoins, replays bit for bit.  (e)
    `serve fed --transport tcp --workers 4 --iters 60` with worker
    processes on the card, plain and `--stream` (its replay gate
-   included), both exit 0; beside them, in this process, a TCP run whose
+   included), both exit 0 (started after (b), so that their processes
+   come up beside (c) and (d)); beside them, in this process, a TCP run whose
    worker 0 is SIGKILLed and respawned with `--epoch 1`, and one with
    `--max-workers 5` whose late worker 4 widens the run, which replays
    bit for bit through `run_scanned_elastic` (these two side by side,
@@ -226,17 +227,18 @@ file; exits non-zero, printing no result, without them.  Phases:
 16. The LLM training path (`repro_torch.launch.train`, after phase 14).
    (a) xLSTM-125M at full size (bf16, 66M parameters, nothing cut) on
    the driver's AFTO defaults (sketch r 256, N 4, per-worker batch 2,
-   sequence 129, tau 10) for 20 iterations with t_pre 10 at lr
-   TRAIN_LR: the eager engine, the chunked engine in chunks of 10, a
-   `--stream` run checkpointing every 10, and a run resumed from its
-   step-10 checkpoint; chunked bitwise eager, resumed bitwise the
-   uninterrupted streamed run, losses finite, an active cut in both
+   sequence 129, tau 10) with t_pre 10 at lr TRAIN_LR: the chunked
+   engine for 20 iterations in chunks of 10 (kept for phase 19), the
+   eager engine for 10, a `--stream` run of 6 checkpointing every 3 and
+   a run resumed from its step-3 checkpoint; eager bitwise the chunked
+   run after its first refresh, resumed bitwise the uninterrupted
+   streamed run, losses finite, an active cut in both
    polytopes after every refresh, no kernel launched by a step or a
    refresh, the validation forwards on the bf16 mLSTM kernel, whose loss
    meets the bf16 route rule (PERF.md §2) against the plain route and an
    f32 evaluation, and each of whose kernel calls is held to its plain
    version on the call's inputs (ROUTE_ROW_TOL); ms per iteration and per refresh, peak
-   `torch.cuda.max_memory_allocated`, and the eager run's last two
+   `torch.cuda.max_memory_allocated`, and the chunked run's last two
    iterations and its second refresh under torch.profiler.  (b) Llama-3
    8B's widths at one layer (bf16, 1.27B parameters): four plain AdamW
    steps (batch 2 x 2, sequence 129) and one AFTO step (N 2, batch 1,
@@ -288,6 +290,42 @@ file; exits non-zero, printing no result, without them.  Phases:
    (from `reset_peak_memory_stats()` just before the call), and the
    roofline's compute term no longer than the call; each reading beside
    the card's name and power limit.
+
+19. The LLM federation over a worker mesh (`launch.train --mesh-workers`,
+   after phases 16 and 18): one job of 2 gloo ranks sharing the card
+   (`launch.mesh.spawn_mesh`), whose first rank alone also forms a
+   1-rank NCCL mesh.  (a) xLSTM-125M at full size (bf16) on phase 16
+   (a)'s settings, N 4 on the 2 ranks, 20 iterations in chunks of 10
+   through `launch.train.run_afto_on_mesh`: losses finite, an active cut
+   in both polytopes after each refresh, no kernel launched by a step or
+   a refresh, rank 0's validation forwards on the bf16 mLSTM kernel,
+   each call held to its plain version (ROUTE_ROW_TOL), the replicated
+   leaves bitwise equal across ranks, and the gathered state and the
+   logged losses held to phase 16 (a)'s unsharded chunked run
+   (MESH_TRAIN_TOL, MESH_LOSS_RTOL); the gate sits between that reading
+   and two faults planted in the step's sum (a dropped theta sum, rank
+   1's b-part of the cut values left out) over MESH_FAULT_ITERATIONS
+   iterations from the state after the first refresh, `plant`ed so
+   that the sums carry: each must read beyond the gate or split the
+   ranks' replicated leaves.  (b) Reduced llama3-8b and xlstm-125m
+   (f32), N 4, in exact and sketch cut modes, on the 2 ranks and on the
+   1-rank NCCL mesh: 4 iterations with one refresh (t_pre 2) from a
+   `plant`ed state (each rank plants one arch's and hands them to the
+   other), each held to the card's unsharded run from the same state,
+   which the second rank runs beside the first's NCCL legs (every leaf
+   within its arch's CARD_CPU_TOL limit of its largest
+   magnitude: the cut blocks of ROADMAP.md Queue 3 item 16 at theirs,
+   each block taken as one vector as sketch mode stores it, the rest at
+   1e-4 for llama3-8b and at Queue 3 item 17's 3e-3 for reduced xLSTM;
+   cut active / age exact); whether the 1-rank mesh is bitwise
+   is printed.
+   (c) On (a) and (b) each rank's all-reduced bytes by label equal
+   `fed.trilevel_llm_sharded.llm_traffic`'s, and on (a) each rank's
+   resident state equals `fed.sharding.local_bytes` of the layout; ms
+   per iteration and refresh beside phase 16 (a)'s, the share of the
+   wall time in all-reduces (device synchronised first) and each rank's
+   peak `max_memory_allocated`, beside the card's name and power limit;
+   the kernel line's `launches_phase19`.
 
 Each phase ends with a `[clock]` line (its seconds and the script's),
 also on standard error; past WATCHDOG_S seconds every thread's stack
@@ -870,6 +908,9 @@ def round_grads_check(o, dname, R, ops):
 # ---------------------------------------------------------------------------
 
 N_ITERATIONS = 120
+# phase 4's second, timed-only turn of each route (cut from 120 to pay
+# for phase 19)
+TIMING_ITERATIONS = 60
 DA_ITERATIONS = 40
 # final-state agreement between routes, relative to the tensor's largest
 # entry: the routes sum in other orders, so only the cut rows and inner
@@ -893,14 +934,19 @@ def timed_run(spec):
     return res, time.perf_counter() - t0, dict(K.LAUNCHES)
 
 
-def in_turns(specs, order):
+def in_turns(specs, order, later=None):
     """Run `specs[name]` for each name of `order`; keep each route's
-    first result and launches and every time.  `order` is symmetric, so
-    each route sees the same mean position."""
+    first result and launches and every time, in ms per iteration.
+    `order` is symmetric, so each route sees the same mean position;
+    `later` (fields of `RunSpec`) shortens each route's later turns,
+    which are timed only."""
     first, times = {}, {name: [] for name in specs}
     for name in order:
-        res, secs, launches = timed_run(specs[name])
-        times[name].append(secs)
+        spec = specs[name]
+        if name in first and later:
+            spec = dataclasses.replace(spec, **later)
+        res, secs, launches = timed_run(spec)
+        times[name].append(secs / spec.resolved_iterations() * 1e3)
         first.setdefault(name, (res, launches))
     return first, times
 
@@ -982,10 +1028,10 @@ def slice_phase(rows):
         timed_run(dataclasses.replace(spec, n_iterations=20))
     order = ("plain", "fused_plain", "kernel", "fused", "fused", "kernel",
              "fused_plain", "plain")
-    first, times = in_turns(specs, order)
-    ms = {name: [x / N_ITERATIONS * 1e3 for x in t]
-          for name, t in times.items()}
-    print("white-wine ms/iteration in turns (" + ", ".join(order) + "): "
+    first, ms = in_turns(specs, order, later=dict(
+        n_iterations=TIMING_ITERATIONS))
+    print("white-wine ms/iteration in turns (" + ", ".join(order) + "; "
+          f"the second of each route {TIMING_ITERATIONS} iterations): "
           + ", ".join(f"{ms[name][order[:i].count(name)]:.3f}"
                       for i, name in enumerate(order)))
 
@@ -1084,9 +1130,7 @@ def da_phase(rows):
     for spec in specs.values():
         timed_run(dataclasses.replace(spec, n_iterations=20))
     order = ("fused_plain", "fused", "fused", "fused_plain")
-    first, times = in_turns(specs, order)
-    ms = {name: [x / DA_ITERATIONS * 1e3 for x in t]
-          for name, t in times.items()}
+    first, ms = in_turns(specs, order)
     print("domain adaptation ms/iteration in turns (" + ", ".join(order)
           + "): " + ", ".join(f"{ms[name][order[:i].count(name)]:.3f}"
                               for i, name in enumerate(order)))
@@ -2269,13 +2313,13 @@ def moe_phase(rows):
 
 # the reference scripts run Fig. 1 for 120 iterations: cut to 60 (and
 # phase 11's swept Fig. 1 with it) to keep the script within half its
-# time limit
-FIG1_ITERATIONS = 60
+# time limit, then to 40 (four refreshes at t_pre 10) to pay for phase 19
+FIG1_ITERATIONS = 40
 FIG2_ITERATIONS = 40
 # the reference's --fast Table 2 runs AFTO and ADBO GRAD_EQUAL (5) times
-# this many iterations and FedNest this many, at 60: cut to 40 (AFTO and
-# ADBO 200 iterations) to pay for phase 14
-TABLE2_ITERATIONS = 40
+# this many iterations and FedNest this many, at 60: cut to 40 to pay
+# for phase 14, then to 20 (AFTO and ADBO 100 iterations) for phase 19
+TABLE2_ITERATIONS = 20
 RATE_ITERATIONS = 400
 COMM_ITERATIONS = 60
 
@@ -3022,6 +3066,13 @@ STREAM_CHUNKS = (0, 23, 60)
 # white wine's 120 iterations, boundaries off the t_pre = 10 stride
 WW_CHUNKS = (0, 37, 80, 120)
 WW_RESUME = 80
+# phase 12 (b)'s white-wine runs (unchunked, in chunks, resumed; each
+# route): 60 iterations, cut from phase 4's 120 to pay for phase 19,
+# the first boundary off the t_pre = 10 stride, the resumed run crossing
+# two refreshes
+CKPT_ITERATIONS = 60
+CKPT_CHUNKS = (0, 17, 40, 60)
+CKPT_RESUME = 40
 
 
 def stream_scales(dim, b_unit=False):
@@ -3272,14 +3323,14 @@ def streamed_part(launches):
 def checkpoint_part(ww_specs, launches, tmp):
     """(b) white wine on the cut-kernel and fused routes: unchunked, in
     chunks with a checkpoint at each boundary, and resumed from the
-    step-80 checkpoint into a fresh template, all bit for bit."""
+    step-40 checkpoint into a fresh template, all bit for bit."""
     from repro_torch import checkpoint
     from repro_torch.core import StragglerScheduler, afto
 
     for name in ("kernel", "fused"):
         spec = ww_specs[name]
         schedule = StragglerScheduler(spec.scheduler).precompute(
-            N_ITERATIONS)
+            CKPT_ITERATIONS)
         spec = dataclasses.replace(spec, schedule=schedule, scheduler=None,
                                    metrics_every=1, metrics_fn=None)
         full, f_s, f_launch = timed_run(spec)
@@ -3290,25 +3341,25 @@ def checkpoint_part(ww_specs, launches, tmp):
             saved.append(int(state.t))
             checkpoint.save_checkpoint(directory, state, int(state.t))
 
-        chunked, c_launch, c_s = run_in_chunks(spec, schedule, WW_CHUNKS,
+        chunked, c_launch, c_s = run_in_chunks(spec, schedule, CKPT_CHUNKS,
                                                save)
-        check(saved == list(WW_CHUNKS[1:]),
+        check(saved == list(CKPT_CHUNKS[1:]),
               f"(b) {name}: checkpoints at {saved}")
         rerun = lambda: timed_run(spec)[0]  # noqa: E731
         check_bitwise(f"(b) white wine, {name} route, in chunks "
-                      f"{list(WW_CHUNKS)}", chunked, full, rerun)
+                      f"{list(CKPT_CHUNKS)}", chunked, full, rerun)
         template = afto.init_state(spec.problem, spec.hyper)
-        state = checkpoint.load_checkpoint(directory, template, WW_RESUME)
+        state = checkpoint.load_checkpoint(directory, template, CKPT_RESUME)
         resumed, r_s, _ = timed_run(dataclasses.replace(
-            spec, schedule=schedule.slice(WW_RESUME, N_ITERATIONS),
+            spec, schedule=schedule.slice(CKPT_RESUME, CKPT_ITERATIONS),
             state=state))
         check_bitwise(f"(b) white wine, {name} route, resumed from the "
-                      f"step-{WW_RESUME} checkpoint", resumed, full, rerun,
-                      offset=WW_RESUME)
+                      f"step-{CKPT_RESUME} checkpoint", resumed, full, rerun,
+                      offset=CKPT_RESUME)
         print(f"  (b) white wine {name}: unchunked "
-              f"{f_s / N_ITERATIONS * 1e3:.3f} ms/iteration, in chunks "
-              f"{c_s / N_ITERATIONS * 1e3:.3f} (3 checkpoints), resumed "
-              f"{r_s / (N_ITERATIONS - WW_RESUME) * 1e3:.3f}; checkpoint "
+              f"{f_s / CKPT_ITERATIONS * 1e3:.3f} ms/iteration, in chunks "
+              f"{c_s / CKPT_ITERATIONS * 1e3:.3f} (3 checkpoints), resumed "
+              f"{r_s / (CKPT_ITERATIONS - CKPT_RESUME) * 1e3:.3f}; checkpoint "
               f"files {sorted(p.name for p in Path(directory).iterdir())}",
               flush=True)
         launches[f"(b) white wine, {name}, in chunks"] = c_launch
@@ -3395,15 +3446,20 @@ def stream_phase(rows, ww_specs):
 ASYNC_CKPT_EVERY = 40
 ASYNC_KILL_AT = 80
 CHAOS_ITERATIONS = 60
-LIVE_ITERATIONS = 60
+# halved from 60 to pay for phase 19 (three refreshes; the script's
+# time limit)
+LIVE_ITERATIONS = 30
 FED_ITERATIONS = 60
-# the in-process TCP legs, run side by side, paced at 0.12 / 0.1 s an
+# the in-process TCP legs, run side by side, paced at PACE s an
 # iteration until the respawned or late worker process is back and
-# PACED_TAIL iterations more, then unpaced: up to 54 / 45 s for a process
-# to come back on the card, twice what one took while the command-line
-# legs started beside it (20-27 / 16-18 s, PERF.md, section 6)
-KILL_ITERATIONS = 450
-ELASTIC_ITERATIONS = 450
+# PACED_TAIL iterations more, then unpaced: up to 38 s for a process to
+# come back on the card (34 s while the command-line legs started beside
+# it, 19-25 s on faster hosts, PERF.md, section 6; those legs now
+# start after (b), so that their processes are up before these: 22 s on
+# the slowest host read)
+KILL_ITERATIONS = 320
+ELASTIC_ITERATIONS = 320
+PACE = 0.12
 PACED_TAIL = 20
 # fault deadlines of seconds on the card (the defaults, but a quicker
 # heartbeat and poll)
@@ -3729,7 +3785,7 @@ def fed_kill_leg(times):
         unpace(master, marks, marks["rejoin_at"])
 
     res, secs, marks = tcp_run(args, watcher, dict(
-        ASYNC_FAULT, min_iter_time=0.12))
+        ASYNC_FAULT, min_iter_time=PACE))
     rec = res.arrivals
     check(marks.get("died") and marks.get("rejoined")
           and float(rec.dead[:, 0].max()) == 1.0,
@@ -3774,7 +3830,7 @@ def fed_elastic_leg(times):
         unpace(master, marks, marks["admitted_at"])
 
     res, secs, marks = tcp_run(args, watcher, dict(
-        ASYNC_FAULT, min_iter_time=0.1))
+        ASYNC_FAULT, min_iter_time=PACE))
     rec = res.arrivals
     check(rec.width is not None and int(rec.width[0]) == 4
           and int(rec.width[-1]) == 5,
@@ -3797,16 +3853,25 @@ def fed_elastic_leg(times):
           f"{secs:.1f} s", flush=True)
 
 
-def serve_fed_part(times, tmp):
+CLI_LEGS = {"tcp": [], "tcp --stream": ["--stream"]}
+
+
+def start_cli_legs(tmp):
+    """Start (e)'s two `serve fed` command-line runs: {label: (process,
+    start time)}."""
+    return {label: start_serve_fed_cli(extra, Path(tmp) / f"{i}.log")
+            for i, (label, extra) in enumerate(CLI_LEGS.items())}
+
+
+def serve_fed_part(times, tmp, started):
     """(e) `serve fed` over TCP with worker subprocesses on the card: the
-    two command-line runs go on beside the two in-process legs, which go
-    on side by side, each on its own thread (a failed check there ends
-    the script when its result is read)."""
+    two command-line runs (`started` by `start_cli_legs`) go on beside
+    the two in-process legs, which go on side by side, each on its own
+    thread (a failed check there ends the script when its result is
+    read)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    legs = {"tcp": [], "tcp --stream": ["--stream"]}
-    started = {label: start_serve_fed_cli(extra, Path(tmp) / f"{i}.log")
-               for i, (label, extra) in enumerate(legs.items())}
+    legs = CLI_LEGS
     try:
         with ThreadPoolExecutor(2) as pool:
             done = [pool.submit(leg, times)
@@ -3842,14 +3907,31 @@ def async_phase(rows, ww_specs, ww_ms):
     import tempfile
 
     t0 = time.perf_counter()
-    launches, times = {}, {}
-    replayed = async_replay_part(ww_specs, ww_ms, launches)
-    async_live_part(replayed, launches)
-    with tempfile.TemporaryDirectory(prefix="phase13_ckpt_") as tmp:
-        async_resume_part(replayed, launches, tmp)
-    async_chaos_part(replayed, launches)
-    with tempfile.TemporaryDirectory(prefix="phase13_fed_") as tmp:
-        serve_fed_part(times, tmp)
+    launches, times, parts = {}, {}, []
+
+    def part(label, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        parts.append(f"{label} {time.perf_counter() - t:.1f} s")
+        return out
+
+    replayed = part("(a)", async_replay_part, ww_specs, ww_ms, launches)
+    part("(b)", async_live_part, replayed, launches)
+    with tempfile.TemporaryDirectory(prefix="phase13_fed_") as fed_tmp:
+        # (e)'s command-line runs start here, beside (c) and (d) (whose
+        # times are not compared), so that their worker processes are up
+        # before (e)'s in-process legs start theirs
+        cli = start_cli_legs(fed_tmp)
+        try:
+            with tempfile.TemporaryDirectory(prefix="phase13_ckpt_") as tmp:
+                part("(c)", async_resume_part, replayed, launches, tmp)
+            part("(d)", async_chaos_part, replayed, launches)
+        except BaseException:
+            for proc, _ in cli.values():
+                proc.kill()
+                proc.wait()
+            raise
+        part("(e)", serve_fed_part, times, fed_tmp, cli)
     for label, got in launches.items():
         print(f"  launches, {label}: " + ", ".join(
             f"{k} {v}" for k, v in sorted(got.items())), flush=True)
@@ -3870,7 +3952,8 @@ def async_phase(rows, ww_specs, ww_ms):
         + "; TCP legs, s: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in times.items()))
     print(f"phase 13 (the async federation runtime): "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s (" + ", ".join(parts) + ")",
+          flush=True)
     return dataclasses.replace(aspec, schedule=aspec.schedule.slice(0, 20))
 
 
@@ -4194,6 +4277,13 @@ def mesh_phase(rows, ww_ms, ww_specs):
 # ---------------------------------------------------------------------------
 
 TRAIN_ITERATIONS, TRAIN_T_PRE, TRAIN_CHUNK = 20, 10, 10
+# 16 (a)'s eager run stops at the first refresh (iteration 10, held to
+# the chunked run's state there); the streamed run takes 4 iterations
+# with a refresh every 2 and a checkpoint (and a logged row) every 2, so
+# the checkpoint holds refreshed cuts, and the run resumed from it
+# crosses the refresh at 4 (the script's time limit)
+TRAIN_SHORT = 10
+TRAIN_STREAM, TRAIN_STREAM_T_PRE, TRAIN_STREAM_CKPT = 4, 2, 2
 # at the driver's lr (3e-3) plain SGD on xLSTM-125M's gate weights
 # (gradients up to 3.4e3 in the first steps) drives an mLSTM stabiliser
 # below -88.7 by the third step at full width: the normaliser's
@@ -4249,9 +4339,11 @@ class TrainMeter:
     launch (there must be none: they differentiate the plain math), and
     after each refresh the count of active cuts in both polytopes."""
 
-    def __init__(self, profile_steps=()):
+    def __init__(self, profile_steps=(), keep_refresh=None):
         self.step_ms, self.refresh_ms, self.launches = [], [], 0
         self.cuts_after_refresh = []
+        # the state after the refresh of this count (from 0), kept
+        self.keep_refresh, self.kept = keep_refresh, None
         # steps (by count, from 0) run under torch.profiler, with the
         # refresh that follows the last of them: (profiler, wall_us)
         self.profile_steps, self.profiled = tuple(profile_steps), None
@@ -4292,6 +4384,8 @@ class TrainMeter:
 
         def refresh(*a):
             st = timed(refresh0, self.refresh_ms)(*a)
+            if len(self.refresh_ms) - 1 == self.keep_refresh:
+                self.kept = st
             self.cuts_after_refresh.append(
                 (int(st.cuts.active.sum()), int(st.cuts_i.active.sum())))
             if self._prof is not None:
@@ -4474,6 +4568,10 @@ def loss_route_check(label, cfg, params, tokens):
     return launches
 
 
+# phase 16 (a)'s chunked run and times, which phase 19 holds its mesh to
+PHASE16 = {}
+
+
 def xlstm_training(tmp, launches):
     """16 (a): xLSTM-125M at full size, the driver's AFTO defaults."""
     import shutil
@@ -4481,11 +4579,16 @@ def xlstm_training(tmp, launches):
     from repro_torch.configs import get_config
     from repro_torch.kernels import cut_eval as K
     from repro_torch.launch import train
-    from repro_torch.utils.tree import tree_index
+    from repro_torch.utils.tree import tree_index, tree_map
 
     cfg = get_config("xlstm-125m")
-    base = ("--steps", str(TRAIN_ITERATIONS), "--t-pre", str(TRAIN_T_PRE),
-            "--log-every", str(TRAIN_CHUNK), "--lr", str(TRAIN_LR))
+    common = ("--t-pre", str(TRAIN_T_PRE), "--log-every", str(TRAIN_CHUNK),
+              "--lr", str(TRAIN_LR))
+    base = ("--steps", str(TRAIN_ITERATIONS), *common)
+    short = ("--steps", str(TRAIN_SHORT), *common)
+    streamed = ("--steps", str(TRAIN_STREAM), "--t-pre",
+                str(TRAIN_STREAM_T_PRE), "--log-every",
+                str(TRAIN_STREAM_CKPT), "--lr", str(TRAIN_LR))
     args0 = train_args(*base)
     _, state0, _, _ = train._afto_setup(cfg, args0)
     n_params = sum(x.numel() for x in train.tree_leaves(state0.z3))
@@ -4494,42 +4597,56 @@ def xlstm_training(tmp, launches):
           f"{args0.seq}, sketch r {args0.sketch_r}, tau {args0.tau}, "
           f"t_pre {TRAIN_T_PRE}, lr {TRAIN_LR}", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    # the eager run's last two steps and its second refresh run under
-    # torch.profiler (their times are left out of the means)
+    # the chunked run goes first: its last two steps and its second
+    # refresh run under torch.profiler (their times are left out of the
+    # means), and its state after its first refresh is kept
     prof_steps = (TRAIN_ITERATIONS - 2, TRAIN_ITERATIONS - 1)
-    meter = TrainMeter(profile_steps=prof_steps)
+    meter = TrainMeter(profile_steps=prof_steps, keep_refresh=0)
     runs = {}
     K.reset_launches()
     with meter.installed():
-        runs["eager"] = train.run_afto(cfg, train_args(*base,
-                                                       "--engine", "eager"),
-                                       state=state0)
-        n_eager = len(meter.step_ms), len(meter.refresh_ms)
         runs["chunked"] = train.run_afto(
             cfg, train_args(*base, "--scan-chunk", str(TRAIN_CHUNK)),
             state=state0)
+        runs["eager"] = train.run_afto(cfg, train_args(*short,
+                                                       "--engine", "eager"),
+                                       state=state0)
         full, part = f"{tmp}/stream_full", f"{tmp}/stream_resumed"
-        stream = (*base, "--stream", "--scan-chunk", str(TRAIN_CHUNK),
-                  "--ckpt-every", str(TRAIN_CHUNK))
+        stream = (*streamed, "--stream", "--scan-chunk",
+                  str(TRAIN_STREAM_CKPT), "--ckpt-every",
+                  str(TRAIN_STREAM_CKPT))
         runs["streamed"] = train.run_afto(
             cfg, train_args(*stream, "--ckpt-dir", full), state=state0)
-        shutil.copytree(f"{full}/step_{TRAIN_CHUNK:08d}",
-                        f"{part}/step_{TRAIN_CHUNK:08d}")
+        shutil.copytree(f"{full}/step_{TRAIN_STREAM_CKPT:08d}",
+                        f"{part}/step_{TRAIN_STREAM_CKPT:08d}")
+        before = len(meter.refresh_ms)
         runs["resumed"] = train.run_afto(
             cfg, train_args(*stream, "--ckpt-dir", part, "--resume"),
             state=state0)
+        resumed_refreshes = len(meter.refresh_ms) - before
     total = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    states_bitwise("16 (a) chunked against eager", runs["chunked"]["state"],
-                   runs["eager"]["state"])
-    histories_equal("16 (a) chunked against eager",
-                    runs["chunked"]["history"], runs["eager"]["history"])
+    states_bitwise(f"16 (a) eager ({TRAIN_SHORT} iterations) against the "
+                   "chunked run after its first refresh",
+                   runs["eager"]["state"], meter.kept)
+    meter.kept = None
+    histories_equal("16 (a) eager against chunked",
+                    runs["eager"]["history"],
+                    runs["chunked"]["history"][:1])
     states_bitwise("16 (a) resumed against uninterrupted (--stream)",
                    runs["resumed"]["state"], runs["streamed"]["state"])
     check(runs["resumed"]["history"] == [] or
           runs["resumed"]["history"][-1]["loss"]
           == runs["streamed"]["history"][-1]["loss"],
           "16 (a) resumed run's last loss differs")
+    at_ckpt = [h for h in runs["streamed"]["history"]
+               if h["step"] == TRAIN_STREAM_CKPT]
+    check(len(at_ckpt) == 1 and at_ckpt[0]["cuts"] >= 1,
+          f"16 (a): the streamed run's checkpoint at step "
+          f"{TRAIN_STREAM_CKPT} holds no active cut: "
+          f"{runs['streamed']['history']}")
+    check(resumed_refreshes >= 1, "16 (a): the resumed run crossed no "
+          "refresh")
     for name, out in runs.items():
         finite_losses(f"16 (a) {name}", out["history"])
     check(all(a >= 1 and b >= 1 for a, b in meter.cuts_after_refresh),
@@ -4540,16 +4657,19 @@ def xlstm_training(tmp, launches):
     check(total.get("mlstm_chunk", 0) > 0,
           f"16 (a): the validation forwards launched {total}")
     # timed means: every step and refresh of the four runs but the first
-    # of each (the process's warm-up) and the profiled ones
+    # of all (the process's warm-up) and the profiled ones
     steps = [ms for i, ms in enumerate(meter.step_ms)
              if i not in prof_steps and i != 0]
-    refreshes = [ms for i, ms in enumerate(meter.refresh_ms)
-                 if i not in (0, n_eager[1] - 1)]
+    refreshes = meter.refresh_ms[2:]
     ms_it, ms_ref = float(np.mean(steps)), float(np.mean(refreshes))
-    print(f"  16 (a) runs: eager, chunks of {TRAIN_CHUNK}, --stream with a "
-          f"checkpoint every {TRAIN_CHUNK}, and resumed from step "
-          f"{TRAIN_CHUNK}: chunked bitwise eager, resumed bitwise "
-          f"uninterrupted; losses "
+    print(f"  16 (a) runs: chunks of {TRAIN_CHUNK} ({TRAIN_ITERATIONS} "
+          f"iterations), eager ({TRAIN_SHORT}), --stream ({TRAIN_STREAM}, "
+          f"a refresh every {TRAIN_STREAM_T_PRE}) with a checkpoint every "
+          f"{TRAIN_STREAM_CKPT} ({at_ckpt[0]['cuts']:.0f} active cuts in "
+          f"it), and resumed from step {TRAIN_STREAM_CKPT} ("
+          f"{resumed_refreshes} refresh after the resume): eager bitwise "
+          "the chunked run after its first refresh, resumed bitwise "
+          "uninterrupted; losses "
           + ", ".join(f"{k} {[round(h['loss'], 4) for h in v['history']]}"
                       for k, v in runs.items())
           + f"; active cuts (II, I) after each refresh "
@@ -4561,15 +4681,20 @@ def xlstm_training(tmp, launches):
           f"steps of the four runs; the first {meter.step_ms[0]:.1f}), ms per"
           f" refresh {ms_ref:.1f} (mean of {len(refreshes)}; the first "
           f"{meter.refresh_ms[0]:.1f}); peak torch.cuda.max_memory_allocated "
-          f"{peak:.2f} GiB", flush=True)
+          f"{peak:.2f} GiB ({CARD})", flush=True)
     check(meter.profiled is not None, "16 (a): the profiled window ran no "
           "refresh")
-    report_profile("16 (a) xLSTM-125M, eager steps 19-20 and the refresh "
-                   "at step 20", *meter.profiled)
+    report_profile(f"16 (a) xLSTM-125M, chunked steps {TRAIN_ITERATIONS - 1}"
+                   f"-{TRAIN_ITERATIONS} and the refresh at step "
+                   f"{TRAIN_ITERATIONS}", *meter.profiled)
     for k, v in total.items():
         launches[k] = launches.get(k, 0) + v
-    # the bf16 rule on the last validation batch of the eager run
-    w0 = tree_index(runs["eager"]["state"].X3, 0)
+    PHASE16.update(
+        state=tree_map(lambda x: x.cpu(), runs["chunked"]["state"]),
+        history=runs["chunked"]["history"], ms_it=ms_it, ms_ref=ms_ref,
+        peak=peak)
+    # the bf16 rule on the last validation batch of the chunked run
+    w0 = tree_index(runs["chunked"]["state"].X3, 0)
     from repro_torch.data.synthetic import make_token_stream
     toks = torch.as_tensor(make_token_stream(
         cfg.vocab_size, args0.workers * args0.batch, args0.seq,
@@ -4647,19 +4772,20 @@ def llama_training(launches):
     return peak_plain, peak_afto
 
 
-def leaf_diffs(got, want, exact_ints=True):
+def leaf_diffs(got, want, exact_ints=True, label="16 (c)"):
     """[(name, max |got - want| / max |want|)] over the floating leaves
-    of two states; cut active / age must be exact (with exact_ints)."""
+    of two states, taken on `got`'s device; cut active / age must be
+    exact (with exact_ints)."""
     import torch
     from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
 
     out = []
     for (path, g), w in zip(tree_leaves_with_path(got), tree_leaves(want)):
         name = "/".join(str(e[0]) for e in path)
-        g, w = g.cpu().double(), w.cpu().double()
+        g, w = g.double(), w.to(g.device).double()
         if name.endswith(("active", "age")):
             check(not exact_ints or torch.equal(g, w),
-                  f"16 (c): {name} differs")
+                  f"{label}: {name} differs")
             continue
         scale = float(w.abs().max()) if w.numel() else 0.0
         out.append((name, float((g - w).abs().max()) / scale
@@ -5091,6 +5217,855 @@ def dryrun_phase(started):
     return readings
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the LLM federation over a worker mesh
+# ---------------------------------------------------------------------------
+
+# one job of 2 gloo ranks sharing the card; its first rank alone forms
+# the NCCL mesh (`make_worker_mesh`; every rank creates it, in order)
+LLM_MESH_RANKS = 2
+LLM_MESH_TIMEOUT = 600.0
+# 19 (a)'s gate against phase 16 (a)'s unsharded chunked run: every
+# leaf of the gathered state within MESH_TRAIN_TOL of its largest
+# magnitude (cut active / age exact), the logged losses within
+# MESH_LOSS_RTOL.  At these settings theta stays 0 and no cut binds, so
+# the step's sums carry nothing there; the planted window (see
+# `fault_windows`) makes them carry, and its gathered correct run is
+# held to the same window unsharded at MESH_TRAIN_TOL.  Set between the
+# readings and the planted faults of the 1-iteration window on an
+# NVIDIA H100 80GB HBM3: the 20-iteration state read 9.35e-8 (cuts_i/c;
+# every other leaf closer), the losses were equal, the correct window
+# 0 from the unsharded one; the dropped theta sum read 2.861e-6 (z1),
+# rank 1's b-part left out 9.996e-1 (stale_lam)
+MESH_TRAIN_TOL = 1e-6
+MESH_LOSS_RTOL = 1e-5
+# 19 (b): every leaf within its arch's CARD_CPU_TOL limit of its largest
+# magnitude in the card's unsharded run from the same planted state:
+# the cut blocks of ROADMAP.md Queue 3 item 16 at theirs (each block's
+# leaves taken as one vector), the rest at "rest", 1e-4 for llama3-8b
+# and reduced xLSTM's 3e-3 of Queue 3 item 17 (its f32 gradients are
+# ill-conditioned: on 2 ranks in exact mode X3's zero-initialised
+# stages/0/pos0/norm1 read 9.87e-4)
+# ... and, past STAGE_WITNESS_FLOOR (the 1e-4 every leaf was first
+# held to), within
+# TRAJECTORY_OVER_ULP x the larger of two witnesses' readings of the same
+# leaf or block, each the card's unsharded run against its own: with the
+# worker vmap over blocks of 2 rows, as each rank runs it ("pairs";
+# `vmapped_in_pairs`), and from weights one ulp up ("ulp", 16 (c)'s).
+# On an NVIDIA H100 80GB HBM3 "pairs" read exactly what the 2-rank legs
+# read on every leaf past 1e-4 (reduced xLSTM's X3 norm1 up to 1.23e-3,
+# cuts_i/a2 5.18e-3): the legs differ by the vmap's rounding alone
+STAGE_WITNESS_FLOOR = 1e-4
+STAGE_WITNESSES = ("pairs", "ulp")
+MESH_STAGE_ARGS = ("--steps", "4", "--t-pre", "2", "--t1", "2", "--workers",
+                   "4", "--batch", "2", "--seq", "33", "--sketch-r", "128")
+# the planted state of 19 (b) and of (a)'s fault windows (`plant`):
+# lam and stale_lam on the active cuts, theta's rows drawn in
+# [-MESH_PLANTED_THETA, MESH_PLANTED_THETA] from seed 19
+MESH_PLANTED_LAM, MESH_PLANTED_STALE_LAM = 2e-3, 1e-3
+MESH_PLANTED_THETA = 0.5
+# the fault windows of 19 (a): iterations from the state after the
+# first refresh (`plant`ed: see there), correct and with each fault
+# planted in the step's sum
+MESH_FAULT_ITERATIONS = 1
+# ... in which each active II-cut is violated by this much at the step's
+# new variables (lam comes out near 0.01 x this, inside its clamp of 10):
+# the cut value's f32 rounding, a few ulps of its terms, stays far below
+# it (a violation of 1 let the unsharded window read 2.3e-6 on lam on
+# the CPU at reduced size; at full size the violation of 1 planted at
+# the input fell below 0 after the step's moves, so lam was clipped to 0
+# in both).  On an NVIDIA H100 80GB HBM3 the correct window read bitwise
+# the unsharded one, the faults 2.861e-6 (z1) and 9.996e-1 (stale_lam)
+MESH_WINDOW_VIOLATION = 500.0
+MESH_FAULTS = {"theta": "a dropped theta sum (each rank keeps its own)",
+               "b-part": "rank 1's b-part left out of the cut values"}
+PHASE19_S = 150.0
+
+
+def storage_bytes(tree) -> int:
+    """The bytes the distinct storages of a tree's tensors hold."""
+    from repro_torch.utils.tree import tree_leaves
+
+    seen = {}
+    for x in tree_leaves(tree):
+        st = x.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+class MeshMeter:
+    """Wraps the driver's sharded step and refresh (the names it calls)
+    in a rank: device-synchronised ms, the kernels they launch (there
+    must be none), the active cuts after each refresh, the resident
+    bytes of the first step's state argument, and the state after the
+    first refresh (for the fault windows)."""
+
+    def __init__(self):
+        self.step_ms, self.refresh_ms, self.launches = [], [], 0
+        self.cuts_after_refresh, self.resident = [], None
+        self.after_refresh = None
+
+    @contextlib.contextmanager
+    def installed(self):
+        import torch
+        from repro_torch.kernels import cut_eval as K
+        from repro_torch.launch import train
+
+        step0 = train.afto_llm_step_sharded
+        refresh0 = train.cut_refresh_llm_sharded
+
+        def timed(fn, out_ms, *a):
+            torch.cuda.synchronize()
+            before = sum(K.LAUNCHES.values())
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            out_ms.append((time.perf_counter() - t0) * 1e3)
+            self.launches += sum(K.LAUNCHES.values()) - before
+            return out
+
+        def step(shard, cfg, hyper, st, *a):
+            if self.resident is None:
+                self.resident = storage_bytes(st)
+            return timed(step0, self.step_ms, shard, cfg, hyper, st, *a)
+
+        def refresh(*a):
+            st = timed(refresh0, self.refresh_ms, *a)
+            if self.after_refresh is None:
+                self.after_refresh = st
+            self.cuts_after_refresh.append(
+                (int(st.cuts.active.sum()), int(st.cuts_i.active.sum())))
+            return st
+
+        train.afto_llm_step_sharded, train.cut_refresh_llm_sharded = \
+            step, refresh
+        try:
+            yield self
+        finally:
+            train.afto_llm_step_sharded = step0
+            train.cut_refresh_llm_sharded = refresh0
+
+
+@contextlib.contextmanager
+def recorded_val_calls(calls):
+    """The driver's validation forwards with their kernel calls recorded
+    into `calls` (`kernel_calls`), and none of the steps' plain calls."""
+    from repro_torch.launch import train
+
+    make0 = train.make_val_loss
+
+    def make(cfg):
+        val_loss = make0(cfg)
+
+        def recorded(w, toks):
+            with kernel_calls() as got:
+                out = val_loss(w, toks)
+            calls.extend(got)
+            return out
+        return recorded
+
+    train.make_val_loss = make
+    try:
+        yield calls
+    finally:
+        train.make_val_loss = make0
+
+
+@contextlib.contextmanager
+def planted_fault(mesh, fault):
+    """The mesh's all-reduce with `fault` planted in the step's sum
+    ("step": (theta sum, cut values' worker part) and, in sketch mode,
+    z2's sketch): "theta" keeps each rank's own theta partial, "b-part"
+    leaves rank 1's worker part out; None plants nothing."""
+    import torch
+
+    reduce0 = mesh.all_reduce
+
+    def faulty(**parts):
+        if fault is None or "step" not in parts:
+            return reduce0(**parts)
+        payload = parts["step"]
+        nested = isinstance(payload[0], tuple)
+        theta, part = payload[0] if nested else payload
+        if fault == "b-part" and mesh.rank == 1:
+            part = torch.zeros_like(part)
+        sent = ((theta, part), payload[1]) if nested else (theta, part)
+        got = reduce0(step=sent)["step"]
+        if fault == "theta":
+            summed = got[0] if nested else got
+            got = ((theta, summed[1]), got[1]) if nested \
+                else (theta, summed[1])
+        return {"step": got}
+
+    mesh.all_reduce = faulty
+    try:
+        yield
+    finally:
+        del mesh.all_reduce
+
+
+def replicated_digest(state) -> str:
+    """sha256 of the leaves the launcher's layout replicates."""
+    import hashlib
+
+    import torch
+    from repro_torch.fed import sharding as shd
+    from repro_torch.utils.tree import tree_leaves_with_path
+
+    h = hashlib.sha256()
+    for path, x in tree_leaves_with_path(state):
+        if shd._llm_worker_dim(path) is None:
+            h.update(x.detach().cpu().contiguous().view(-1).view(
+                torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def local_leaf_errors(got, want):
+    """[(name, max |got - want|, max |want|)] over a shard's floating
+    leaves (combined over the ranks into global readings)."""
+    from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
+
+    out = []
+    for (path, g), w in zip(tree_leaves_with_path(got), tree_leaves(want)):
+        if not g.is_floating_point() or not g.numel():
+            continue
+        g, w = g.double(), w.double()
+        out.append(("/".join(str(e[0]) for e in path),
+                    float((g - w).abs().max()), float(w.abs().max())))
+    return out
+
+
+def plant(st, n_workers, cutvals, rows=slice(None)):
+    """A state in which every sum of the step carries: lam and stale_lam
+    positive on the active cuts, each polytope's active cuts violated by
+    1 (their constants c moved by `cutvals`, the cut values at `st`, one
+    (P,) tensor a polytope, "cuts" and optionally "cuts_i"), and theta's
+    rows (and their stale views) drawn from seed 19.  At the driver's
+    settings a cut never binds (c ~ 6.6e4 from the bound term mu (2N +
+    2) alpha, the cut values far below), so lam stays 0 and the cut
+    values' sum is multiplied by zero; z1's step is below an f32 ulp at
+    lr 1e-5, so theta stays 0 and so does its sum.  `rows` are the
+    state's workers of the `n_workers`."""
+    import torch
+    from repro_torch.fed.trilevel_llm import N_PHI
+
+    act = st.cuts.active
+    g = torch.Generator(device=act.device).manual_seed(19)
+    theta = (2 * torch.rand((n_workers, N_PHI), generator=g,
+                            device=act.device) - 1) * MESH_PLANTED_THETA
+    theta = theta[rows].contiguous()
+    polytopes = {name: dataclasses.replace(
+        getattr(st, name), c=getattr(st, name).c
+        + (cutvals[name] - 1.0) * getattr(st, name).active)
+        for name in cutvals}
+    return dataclasses.replace(
+        st, lam=act * MESH_PLANTED_LAM,
+        stale_lam=(act * MESH_PLANTED_STALE_LAM)[None].expand(
+            st.stale_lam.shape[0], -1).contiguous(),
+        theta=theta, stale_theta=theta.clone(), **polytopes)
+
+
+def sharded_cut_values(shard, hyper, st):
+    """The II-layer cut values at a shard's state, summed over the mesh
+    (label "probe")."""
+    from repro_torch.fed import trilevel_llm_sharded as tls
+
+    seed = hyper.seed_ii
+    sketched = hyper.cut_mode == "sketch"
+    part = tls._worker_cut_part(shard.start, hyper, st.cuts, st.z2, st.X2,
+                                st.X3, seed, with_a2=not sketched)
+    if sketched:
+        part, s_z2 = tls._sum_with_sketch(shard, "probe", part, st.z2, seed,
+                                          hyper.sketch_r)
+    else:
+        part, s_z2 = shard.reduce("probe", part), None
+    return tls._cut_values(hyper, st.cuts, st.z1, st.z3, part, s_z2, seed)
+
+
+def fault_windows(mesh, cfg, args, st):
+    """MESH_FAULT_ITERATIONS iterations of 19 (a) from the shard's state
+    `st` after the first refresh, `plant`ed, correct and with each
+    planted fault: each leaf's local error against the correct window,
+    and the digest of the replicated leaves (a fault that desynchronises
+    the ranks shows there).  Rank 0 also runs the window unsharded
+    (`afto_llm_step`) from the gathered planted state and holds the
+    gathered correct window to it: [(leaf, max |diff| / max |unsharded|)]
+    and whether cut active / age are equal."""
+    import torch
+    from repro_torch.fed.sharding import gather_fed_state
+    from repro_torch.fed.trilevel_llm_sharded import Shard
+    from repro_torch.launch import train
+
+    shard = Shard(mesh, args.workers)
+    rows = slice(shard.start, shard.start + shard.n_local)
+    hyper = train.afto_hyper(args)
+    st = plant(st, args.workers, {"cuts": sharded_cut_values(
+        shard, hyper, st)}, rows)
+    _, _, sched, _ = train._afto_setup(cfg, args, state=st)
+    first = int(st.t)
+    stop = first + MESH_FAULT_ITERATIONS
+    toks = torch.as_tensor(np.ascontiguousarray(train._chunk_tokens(
+        cfg, args, first, stop)[:, rows]), device="cuda")
+    masks = torch.as_tensor(np.ascontiguousarray(sched.precompute(
+        stop).active[:, rows]), device="cuda")
+
+    def window(fault):
+        out = st
+        with planted_fault(mesh, fault):
+            for i, it in enumerate(range(first, stop)):
+                out = train._step(cfg, args, hyper, out,
+                                  {"tokens": toks[i], "val_tokens": toks[i]},
+                                  masks[it], it, shard)
+        return out
+
+    # the step's cut values are taken after its own moves: the constants
+    # c are set from a first correct window so that they read
+    # MESH_WINDOW_VIOLATION there
+    after = sharded_cut_values(shard, hyper, window(None))
+    act = st.cuts.active
+    st = dataclasses.replace(st, cuts=dataclasses.replace(
+        st.cuts, c=st.cuts.c + (after - MESH_WINDOW_VIOLATION) * act))
+    correct = window(None)
+    readings = {}
+    for fault in MESH_FAULTS:
+        got = window(fault)
+        readings[fault] = dict(errors=local_leaf_errors(got, correct),
+                               digest=replicated_digest(got))
+        del got
+    readings[None] = dict(digest=replicated_digest(correct))
+    planted, gathered = gather_fed_state(st, mesh), \
+        gather_fed_state(correct, mesh)
+    del st, correct
+    if mesh.rank == 0:
+        all_toks = torch.as_tensor(train._chunk_tokens(cfg, args, first,
+                                                       stop), device="cuda")
+        all_masks = torch.as_tensor(sched.precompute(stop).active,
+                                    device="cuda")
+        out = planted
+        for i, it in enumerate(range(first, stop)):
+            out = train._step(cfg, args, hyper, out,
+                              {"tokens": all_toks[i],
+                               "val_tokens": all_toks[i]},
+                              all_masks[it], it)
+        ints = all(torch.equal(getattr(gathered, k).active,
+                               getattr(out, k).active)
+                   and torch.equal(getattr(gathered, k).age,
+                                   getattr(out, k).age)
+                   for k in ("cuts", "cuts_i"))
+        readings[None]["unsharded"] = (
+            leaf_diffs(gathered, out, exact_ints=False), ints)
+        del out
+    del planted, gathered
+    return readings
+
+
+def mesh_training_leg(mesh):
+    """19 (a) on one rank: xLSTM-125M at full size on phase 16 (a)'s
+    settings, the federation split over `mesh`."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cut_eval as K
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_config("xlstm-125m")
+    args = train_args("--steps", str(TRAIN_ITERATIONS), "--t-pre",
+                      str(TRAIN_T_PRE), "--log-every", str(TRAIN_CHUNK),
+                      "--lr", str(TRAIN_LR), "--scan-chunk",
+                      str(TRAIN_CHUNK), "--mesh-workers", str(mesh.size))
+    meter, calls = MeshMeter(), []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    mesh.reset_traffic()
+    mesh.profile = True
+    t0 = time.perf_counter()
+    with meter.installed(), recorded_val_calls(calls):
+        res = train.run_afto_on_mesh(mesh, cfg, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    traffic, calls_n = dict(mesh.traffic), dict(mesh.calls)
+    seconds = dict(mesh.seconds)
+    mesh.profile = False
+    peak = torch.cuda.max_memory_allocated()
+    route = None
+    if mesh.rank == 0:
+        route = route_calls_check("19 (a) rank 0's validation forwards",
+                                  calls)
+    n_calls = len(calls)
+    del calls
+    faults = fault_windows(mesh, cfg, args, meter.after_refresh)
+    meter.after_refresh = None
+    return dict(
+        history=res["history"], digest=replicated_digest(res["state"]),
+        state=tree_map(lambda x: x.cpu(), res["state"])
+        if mesh.rank == 0 else None,
+        step_ms=meter.step_ms, refresh_ms=meter.refresh_ms,
+        step_launches=meter.launches, cuts=meter.cuts_after_refresh,
+        resident=meter.resident, launches=launches, traffic=traffic,
+        calls=calls_n, reduce_s=seconds, wall=wall, peak=peak, route=route,
+        val_calls=n_calls, faults=faults)
+
+
+def stage_args(mode, mesh_size=None):
+    return train_args(*MESH_STAGE_ARGS, "--lr", str(TRAIN_LR), "--cut-mode",
+                      mode, device="cuda", mesh_workers=mesh_size)
+
+
+@contextlib.contextmanager
+def vmapped_in_pairs():
+    """The unsharded step and refresh with their worker vmap
+    (`trilevel_llm._per_worker`) run over blocks of 2 rows, as each of 2
+    ranks runs it, and every sum over the workers still taken over all
+    of them."""
+    import torch
+    from repro_torch.fed import trilevel_llm as fed
+
+    per_worker0 = fed._per_worker
+    fed._per_worker = lambda fn, *stacked: torch.func.vmap(
+        fn, chunk_size=2)(*stacked)
+    try:
+        yield
+    finally:
+        fed._per_worker = per_worker0
+
+
+def one_ulp_up(st):
+    """`st` with its weights (X3, z3) one ulp up: 16 (c)'s witness."""
+    import torch
+    from repro_torch.utils.tree import tree_map
+
+    up = lambda x: torch.nextafter(x, torch.full_like(x, np.inf))
+    return dataclasses.replace(st, X3=tree_map(up, st.X3),
+                               z3=tree_map(up, st.z3))
+
+
+def mesh_stage_legs(world, nccl, planted):
+    """19 (b) on one rank: each planted state's 4 iterations on the
+    job's mesh and on the 1-rank NCCL mesh of its first rank, beside
+    which the second rank runs the card's unsharded 4 iterations; then
+    the witnesses, unsharded too: the second rank's with the worker vmap
+    over blocks of 2 rows (`vmapped_in_pairs`), the first rank's from
+    weights one ulp up (`one_ulp_up`)."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import cut_eval as K
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import tree_map
+
+    out, unsharded, witness = {}, {}, {}
+
+    def unsharded_run(cfg, mode, state):
+        res = train.run_afto(cfg, stage_args(mode), state=tree_map(
+            lambda x: x.to("cuda"), state))
+        return tree_map(lambda x: x.cpu(), res["state"])
+
+    for (arch, mode), state in planted.items():
+        cfg = reduced(get_config(arch))
+        for mesh in (world, nccl):
+            if not mesh.member:
+                unsharded[(arch, mode)] = unsharded_run(cfg, mode, state)
+                with vmapped_in_pairs():
+                    witness[(arch, mode, "pairs")] = unsharded_run(
+                        cfg, mode, state)
+                continue
+            K.reset_launches()
+            mesh.reset_traffic()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = train.run_afto_on_mesh(mesh, cfg, stage_args(
+                mode, mesh.size), state=state)
+            torch.cuda.synchronize()
+            out[(arch, mode, mesh.size, mesh.backend)] = dict(
+                seconds=time.perf_counter() - t0,
+                traffic=dict(mesh.traffic), launches=dict(K.LAUNCHES),
+                history=res["history"], digest=replicated_digest(
+                    res["state"]),
+                state=tree_map(lambda x: x.cpu(), res["state"])
+                if mesh.rank == 0 else None)
+            if mesh is nccl:
+                witness[(arch, mode, "ulp")] = unsharded_run(
+                    cfg, mode, one_ulp_up(state))
+    return out, unsharded, witness
+
+
+def llm_mesh_rank(world):
+    """Phase 19 on one rank of the LLM_MESH_RANKS-rank gloo job sharing
+    the card: the rank plants (b)'s states of one arch and hands them to
+    the other, then runs (a) on the job's mesh, then (b) on it and on
+    the 1-rank NCCL mesh of the first rank."""
+    started = time.time()
+    import torch
+    from repro_torch.launch.mesh import make_worker_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nccl = make_worker_mesh(1, backend="nccl", device="cuda")
+    # each rank plants one arch's states, and each hands them to the other
+    mine = planted_stage_states(MESH_STAGE_ARCHS[world.rank::world.size])
+    planted = {}
+    for src in range(world.size):
+        planted.update(world.broadcast_object(mine, src=src))
+    planted = {k: planted[k] for k in sorted(planted)}
+    planted_at = time.time()
+    t0 = time.perf_counter()
+    a = mesh_training_leg(world)
+    t_a = time.perf_counter() - t0
+    b, unsharded, witness = mesh_stage_legs(world, nccl, planted)
+    return {"started": started, "planted": planted_at,
+            "a": a, "b": b, "unsharded": unsharded, "witness": witness,
+            "a_s": t_a, "b_s": time.perf_counter() - t0 - t_a}
+
+
+MESH_STAGE_ARCHS = ("llama3-8b", "xlstm-125m")
+
+
+def planted_stage_states(archs):
+    """19 (b)'s planted states of `archs` (one refresh's cuts active in
+    both polytopes, then `plant`), on the host."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.fed import trilevel_llm as fed
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import tree_map
+
+    planted = {}
+    for arch in archs:
+        cfg = reduced(get_config(arch))
+        for mode in ("exact", "sketch"):
+            args = stage_args(mode)
+            hyper, st, _, _ = train._afto_setup(cfg, args)
+            toks = torch.as_tensor(train._chunk_tokens(cfg, args, 0, 1)[0],
+                                   device="cuda")
+            batch = {"tokens": toks, "val_tokens": toks}
+            st = train.afto_llm_step(cfg, hyper, st, batch,
+                                     torch.ones(args.workers, device="cuda"))
+            st = train.cut_refresh_llm(cfg, hyper, st, batch)
+            st = plant(st, args.workers, {
+                name: fed.eval_llm_cuts(hyper, getattr(st, name), st.z1,
+                                        st.z2, st.z3, st.X2, st.X3, seed)
+                for name, seed in (("cuts", hyper.seed_ii),
+                                   ("cuts_i", hyper.seed_i))})
+            check(float(st.cuts.active.sum()) >= 1
+                  and float(st.cuts_i.active.sum()) >= 1,
+                  f"19 (b) {arch} {mode}: a planted polytope without an "
+                  "active cut")
+            planted[(arch, mode)] = tree_map(lambda x: x.cpu(), st)
+    return planted
+
+
+def block_errors(got, want):
+    """{name: (max |got - want|, max |want|)} over the floating leaves of
+    two states, cut active / age exact; the leaves of each cut block of
+    ROADMAP.md Queue 3 item 16 ("cuts/b3", ...) taken as one vector, as
+    sketch mode stores the block (in exact mode a per-leaf measure
+    divides each leaf's rounding by that leaf's own move)."""
+    import torch
+    from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
+
+    blocks = {k for arch in CARD_CPU_TOL for k in CARD_CPU_TOL[arch]
+              if k != "rest"}
+    out = {}
+    for (path, g), w in zip(tree_leaves_with_path(got), tree_leaves(want)):
+        name = "/".join(str(e[0]) for e in path)
+        g, w = g.cpu().double(), w.cpu().double()
+        if name.endswith(("active", "age")):
+            check(torch.equal(g, w), f"19 (b): {name} differs")
+            continue
+        block = "/".join(name.split("/")[:2])
+        key = block if block in blocks else name
+        num = float((g - w).abs().max()) if w.numel() else 0.0
+        den = float(w.abs().max()) if w.numel() else 0.0
+        old = out.get(key, (0.0, 0.0))
+        out[key] = (max(old[0], num), max(old[1], den))
+    return out
+
+
+def relative_errors(blocks):
+    """{name: max |diff| / max |want|} from `block_errors`' pairs."""
+    return {k: num / den if den else 0.0 for k, (num, den) in blocks.items()}
+
+
+def cut_leaf_worst(got, want):
+    """{cut block: (leaf, its max |diff| / the leaf's own max |want|)}:
+    the per-leaf measure, each block's worst leaf."""
+    blocks = {k for arch in CARD_CPU_TOL for k in CARD_CPU_TOL[arch]
+              if k != "rest"}
+    out = {}
+    for name, err in leaf_diffs(got, want, exact_ints=False):
+        block = "/".join(name.split("/")[:2])
+        if block in blocks and err >= out.get(block, ("", -1.0))[1]:
+            out[block] = (name, err)
+    return out
+
+
+def mesh_traffic(got, cfg, args, steps, refreshes):
+    """(the bytes a rank all-reduced by label, `llm_traffic`'s for
+    `steps` steps and `refreshes` refreshes, `llm_traffic`'s record)."""
+    from repro_torch.fed.trilevel_llm_sharded import llm_traffic
+    from repro_torch.launch import train
+
+    rec = llm_traffic(cfg, train.afto_hyper(args), args.mesh_workers,
+                      args.batch, args.seq, device="cuda")
+    want = {"step": steps * rec["step_bytes"],
+            "refresh": refreshes * rec["refresh_bytes"]}
+    return {k: got.get(k, 0) for k in want}, want, rec
+
+
+def stage_limit(arch, name):
+    block = "/".join(name.split("/")[:2])
+    return CARD_CPU_TOL[arch].get(block, CARD_CPU_TOL[arch]["rest"])
+
+
+def llm_mesh_phase(rows):
+    """Phase 19: the LLM federation over a worker mesh
+    (`launch.train --mesh-workers`).  Every reading is printed before
+    the gates are read."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.fed import sharding as shd
+    from repro_torch.fed import trilevel_llm as fed
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import AbstractMesh, spawn_mesh
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    t0, wall0 = time.perf_counter(), time.time()
+    torch.cuda.empty_cache()
+    ranks = spawn_mesh("chip_smoke:llm_mesh_rank", LLM_MESH_RANKS,
+                       backend="gloo", device="cuda", pythonpath=[str(ROOT)],
+                       timeout=LLM_MESH_TIMEOUT)
+    in_job = max(r["started"] for r in ranks) - wall0
+    planted_at = max(r["planted"] for r in ranks) - wall0
+    unsharded = ranks[1]["unsharded"]
+    totals, gates = {}, []
+
+    def gate(ok, msg):
+        if not ok:
+            gates.append(msg)
+
+    # ---- (a)
+    legs = [r["a"] for r in ranks]
+    a = legs[0]
+    cfg = get_config("xlstm-125m")
+    args = train_args("--steps", str(TRAIN_ITERATIONS), "--t-pre",
+                      str(TRAIN_T_PRE), "--mesh-workers",
+                      str(LLM_MESH_RANKS))
+    for r, leg in enumerate(legs):
+        for k, v in leg["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        gate(leg["step_launches"] == 0, f"19 (a) rank {r}: steps and "
+             f"refreshes launched {leg['step_launches']} kernels")
+        gate(all(x >= 1 and y >= 1 for x, y in leg["cuts"]),
+             f"19 (a) rank {r}: a polytope without an active cut after a "
+             f"refresh: {leg['cuts']}")
+        gate(leg["digest"] == a["digest"], "19 (a): the ranks' gathered "
+             "states differ")
+    gate(a["launches"].get("mlstm_chunk", 0) > 0 and a["val_calls"] > 0,
+         f"19 (a): rank 0's validation forwards launched {a['launches']}")
+    want_h = PHASE16["history"]
+    gate([h["step"] for h in a["history"]] == [h["step"] for h in want_h],
+         "19 (a): the logged steps differ from phase 16 (a)'s")
+    loss_rel = max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                   for g, w in zip(a["history"], want_h))
+    gate(loss_rel <= MESH_LOSS_RTOL, f"19 (a): losses {loss_rel:.3e} from "
+         f"phase 16 (a)'s (gate {MESH_LOSS_RTOL})")
+    for g, w in zip(a["history"], want_h):
+        gate(np.isfinite(g["loss"]) and g["cuts"] == w["cuts"]
+             and g["sim_time"] == w["sim_time"],
+             f"19 (a): the loss, cut count or sim_time at step {g['step']}")
+    diffs = leaf_diffs(tree_map(lambda x: x.to("cuda"), a["state"]),
+                       PHASE16["state"], label="19 (a)")
+    worst = max(diffs, key=lambda x: x[1])
+    gate(worst[1] <= MESH_TRAIN_TOL, f"19 (a): {worst[0]} at "
+         f"{worst[1]:.3e} of its largest magnitude in phase 16 (a)'s "
+         f"state (gate {MESH_TRAIN_TOL})")
+    fault_reads = {}
+    for fault in MESH_FAULTS:
+        per = [leg["faults"][fault]["errors"] for leg in legs]
+        reading = max((max(e[i][1] for e in per)
+                       / max(max(e[i][2] for e in per), 1e-300), e0[0])
+                      for i, e0 in enumerate(per[0]))
+        split = len({leg["faults"][fault]["digest"] for leg in legs}) > 1
+        fault_reads[fault] = (reading, split)
+        gate(reading[0] > MESH_TRAIN_TOL or split,
+             f"19 (a): the planted fault '{MESH_FAULTS[fault]}' reads "
+             f"{reading[0]:.3e} ({reading[1]}), within the gate "
+             f"{MESH_TRAIN_TOL}, and leaves the ranks' replicated leaves "
+             "equal: the checks cannot see it")
+    gate(len({leg["faults"][None]["digest"] for leg in legs}) == 1,
+         "19 (a): the correct fault window's ranks differ")
+    window_diffs, window_ints = a["faults"][None]["unsharded"]
+    window_worst = max(window_diffs, key=lambda x: x[1])
+    gate(window_ints, "19 (a): the correct fault window's cut active / "
+         "age differ from the unsharded window's")
+    gate(window_worst[1] <= MESH_TRAIN_TOL, f"19 (a): the correct fault "
+         f"window's {window_worst[0]} at {window_worst[1]:.3e} of its "
+         f"largest magnitude in the unsharded window's (gate "
+         f"{MESH_TRAIN_TOL})")
+    rec = [mesh_traffic(leg["traffic"], cfg, args, TRAIN_ITERATIONS,
+                        TRAIN_ITERATIONS // TRAIN_T_PRE) for leg in legs]
+    for r, (seen, want, _) in enumerate(rec):
+        gate(seen == want, f"19 (a) rank {r}: all-reduced bytes {seen} != "
+             f"llm_traffic's {want}")
+    template = fed.init_fed_state(cfg, train.afto_hyper(args),
+                                  torch.Generator(), args.batch,
+                                  args.seq - 1, device="meta")
+    layout = shd.local_bytes(template, shd.llm_worker_specs(
+        template, LLM_MESH_RANKS), AbstractMesh(("data",), (LLM_MESH_RANKS,)))
+    for r, leg in enumerate(legs):
+        gate(leg["resident"] == layout, f"19 (a) rank {r}: the state holds "
+             f"{leg['resident']:,} bytes, the layout's local_bytes "
+             f"{layout:,}")
+    step_ms = [float(np.mean(leg["step_ms"][1:])) for leg in legs]
+    share = [sum(leg["reduce_s"].get(k, 0.0) for k in ("step", "refresh"))
+             / ((sum(leg["step_ms"]) + sum(leg["refresh_ms"])) / 1e3)
+             for leg in legs]
+    terms = rec[0][2]
+    print(f"  19 (a) xLSTM-125M at full size (bf16), N {args.workers} on "
+          f"{LLM_MESH_RANKS} gloo ranks sharing the card, phase 16 (a)'s "
+          f"settings, {TRAIN_ITERATIONS} iterations in chunks of "
+          f"{TRAIN_CHUNK}: losses "
+          f"{[round(h['loss'], 4) for h in a['history']]} (phase 16 (a)'s "
+          f"chunked run {[round(h['loss'], 4) for h in want_h]}, worst "
+          f"relative {loss_rel:.3e}, gate {MESH_LOSS_RTOL}); gathered state "
+          f"against phase 16 (a)'s: worst leaf {worst[0]} {worst[1]:.3e} of "
+          f"its largest magnitude (gate {MESH_TRAIN_TOL}); active cuts (II, "
+          f"I) after each refresh {a['cuts']}; ranks' gathered states "
+          f"{'equal' if a['digest'] == legs[1]['digest'] else 'differ'}",
+          flush=True)
+    print("  19 (a) planted faults over " + str(MESH_FAULT_ITERATIONS)
+          + (" iteration" if MESH_FAULT_ITERATIONS == 1 else " iterations")
+          + " from the state after the first refresh (planted: "
+          "binding cuts, lam and theta live): the correct window against "
+          "the same window unsharded (afto_llm_step from the gathered "
+          f"planted state): worst leaf {window_worst[0]} "
+          f"{window_worst[1]:.3e} (gate {MESH_TRAIN_TOL}); against the "
+          "correct window: "
+          + "; ".join(
+              f"{MESH_FAULTS[f]}: worst leaf {r[1]} {r[0]:.3e}"
+              + (", replicated leaves differ across ranks" if split else "")
+              for f, (r, split) in fault_reads.items()), flush=True)
+    print(f"  19 (a) rank 0's validation forwards: {a['val_calls']} kernel "
+          f"calls held to their plain versions (worst row_rel_err "
+          f"{a['route'][0]:.3e}, gate {ROUTE_ROW_TOL['mlstm_chunk']}; a "
+          f"planted key-tile fault at least {a['route'][2]:.3e}); launches "
+          + ", ".join(f"rank {r} {leg['launches']}"
+                      for r, leg in enumerate(legs))
+          + f"; steps and refreshes launched "
+          f"{sum(leg['step_launches'] for leg in legs)}", flush=True)
+    print(f"  19 (c) ({CARD}) ms per iteration "
+          + " / ".join(f"{v:.1f}" for v in step_ms)
+          + f" (ranks 0 / 1, mean of {len(a['step_ms']) - 1} steps, the "
+          f"first {a['step_ms'][0]:.1f}; phase 16 (a) unsharded "
+          f"{PHASE16['ms_it']:.1f}), ms per refresh " + " / ".join(
+              "[" + ", ".join(f"{v:.1f}" for v in leg["refresh_ms"]) + "]"
+              for leg in legs)
+          + f" (phase 16 (a) {PHASE16['ms_ref']:.1f}); share of the steps'"
+          " and refreshes' wall time in all-reduces (device synchronised "
+          "first) " + " / ".join(f"{v:.1%}" for v in share)
+          + "; all-reduce seconds " + " / ".join(
+              str({k: round(v, 3) for k, v in leg["reduce_s"].items()})
+              for leg in legs)
+          + f"; bytes per rank {a['traffic']} (llm_traffic: "
+          f"{TRAIN_ITERATIONS} x step {terms['step_bytes']:,}, "
+          f"{TRAIN_ITERATIONS // TRAIN_T_PRE} x refresh "
+          f"{terms['refresh_bytes']:,}: {terms['refresh_terms']}); "
+          f"resident state {layout:,} bytes a rank (local_bytes of the "
+          "layout); peak max_memory_allocated "
+          + " / ".join(f"{leg['peak'] / 2 ** 30:.2f}" for leg in legs)
+          + f" GiB (phase 16 (a) unsharded {PHASE16['peak']:.2f})",
+          flush=True)
+
+    # ---- (b)
+    b = ranks[0]["b"]
+    witness = {**ranks[0]["witness"], **ranks[1]["witness"]}
+    readings, witnessed = [], []
+    for key, leg in b.items():
+        arch, mode, size, backend = key
+        label = f"19 (b) {arch} {mode}, {size} {backend} rank(s)"
+        scfg = reduced(get_config(arch))
+        sargs = stage_args(mode, size)
+        for r in ranks:
+            if key not in r["b"]:
+                continue
+            for k, v in r["b"][key]["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+            gate(r["b"][key]["digest"] == leg["digest"],
+                 f"{label}: the ranks' gathered states differ")
+            seen, want, _ = mesh_traffic(r["b"][key]["traffic"], scfg,
+                                         sargs, 4, 1)
+            gate(seen == want, f"{label}: all-reduced bytes {seen} != "
+                 f"llm_traffic's {want}")
+        want = unsharded[(arch, mode)]
+        seen_by = {w: relative_errors(block_errors(
+            witness[(arch, mode, w)], want)) for w in STAGE_WITNESSES}
+        worst_b = (0.0, "", 0.0)
+        for name, err in relative_errors(block_errors(
+                leg["state"], want)).items():
+            lim = stage_limit(arch, name)
+            gate(err <= lim, f"{label}: {name} at {err:.3e} of its largest "
+                 f"magnitude in the card's unsharded run (gate {lim})")
+            worst_b = max(worst_b, (err / lim, name, err))
+            if err <= STAGE_WITNESS_FLOOR:
+                continue
+            seen = max(v[name] for v in seen_by.values())
+            gate(err <= TRAJECTORY_OVER_ULP * seen, f"{label}: {name} at "
+                 f"{err:.3e}, more than {TRAJECTORY_OVER_ULP} x the "
+                 f"witnesses' {seen:.3e}")
+            if size > 1:
+                witnessed.append(
+                    f"{arch} {mode} {name} {err:.2e} (" + ", ".join(
+                        f"{w} {v[name]:.2e}" for w, v in seen_by.items())
+                    + ")")
+        if size > 1 and mode == "exact":
+            per_leaf = {w: cut_leaf_worst(witness[(arch, mode, w)], want)
+                        for w in STAGE_WITNESSES}
+            mine = cut_leaf_worst(leg["state"], want)
+            witnessed.append(f"{arch} {mode} per leaf: " + ", ".join(
+                f"{blk} {v[1]:.2e} ({v[0]}; " + ", ".join(
+                    f"{w} {per_leaf[w][blk][1]:.2e}" for w in per_leaf)
+                + ")" for blk, v in mine.items()))
+        bitwise = all(x.dtype == y.dtype and torch.equal(x, y)
+                      for x, y in zip(tree_leaves(leg["state"]),
+                                      tree_leaves(want)))
+        readings.append(f"{arch} {mode} {size} {backend}: worst against its "
+                        f"limit {worst_b[1]} {worst_b[2]:.2e} "
+                        f"({worst_b[0]:.2f} of the limit)"
+                        + (", bitwise" if bitwise else ", not bitwise")
+                        + f", {leg['seconds']:.1f} s")
+    print("  19 (b) reduced llama3-8b / xlstm-125m (f32), N 4, 4 iterations "
+          "and one refresh from a planted state (a refresh's cuts active, "
+          f"lam {MESH_PLANTED_LAM} and stale_lam {MESH_PLANTED_STALE_LAM} on "
+          "them, each violated by 1, theta's rows within "
+          f"{MESH_PLANTED_THETA}), each held to the card's unsharded run "
+          "from the same state, run by the second rank beside the first's "
+          "NCCL legs (every leaf of the gathered state against its largest "
+          "magnitude, each cut block of Queue 3 item 16 as one vector, at "
+          "its arch's CARD_CPU_TOL limits; cut active / age exact; bytes "
+          "per label = llm_traffic's): "
+          + "; ".join(readings), flush=True)
+    print("  19 (b) witnesses, the card's unsharded run with the worker vmap "
+          "over blocks of 2 rows (pairs) and from weights one ulp up (ulp), "
+          "each against the unsharded run: every reading of the 2-rank legs "
+          f"above {STAGE_WITNESS_FLOOR} (beside it the witnesses'; gate "
+          f"{TRAJECTORY_OVER_ULP} x the larger): "
+          + "; ".join(witnessed) + (" (none)" if not witnessed else ""),
+          flush=True)
+    for k in KERNELS:
+        rows[k]["launches_phase19"] = int(totals.get(k, 0))
+    took = time.perf_counter() - t0
+    print(f"phase 19 (the LLM federation over a worker mesh, {LLM_MESH_RANKS}"
+          f" gloo ranks on the card and a 1-rank NCCL mesh): {took:.1f} s "
+          f"(every rank in its job {in_job:.1f} s and (b)'s states planted "
+          f"{planted_at:.1f} s after the spawn; (a) {ranks[0]['a_s']:.1f} s, "
+          f"(b) {ranks[0]['b_s']:.1f} s; budget {PHASE19_S:.0f} s, read, not "
+          "gated); launches "
+          + (", ".join(f"{k} {v}" for k, v in sorted(totals.items()))
+             or "none"), flush=True)
+    check(not gates, "phase 19: " + "; ".join(gates))
+
+
 # past this many seconds every thread's stack goes to standard error, so
 # that a run stopped at its time limit shows where it was
 WATCHDOG_S = 900.0
@@ -5150,12 +6125,13 @@ def main() -> None:
     sweep_spec = clocked("phase 11 sweeps", sweep_phase, rows, ww_specs)
     stream_spec = clocked("phase 12", stream_phase, rows, ww_specs)
     async_spec = clocked("phase 13", async_phase, rows, ww_specs, ww_ms)
-    clocked("phase 14", mesh_phase, rows, ww_ms, ww_specs)
-    # phase 18's counts run on meta tensors in two processes beside phase
-    # 16
+    # phase 18's counts run on meta tensors in two processes beside
+    # phases 14 and 16
     counting = start_counts()
+    clocked("phase 14", mesh_phase, rows, ww_ms, ww_specs)
     clocked("phase 16", training_phase, rows)
     clocked("phase 18", dryrun_phase, counting)
+    clocked("phase 19", llm_mesh_phase, rows)
 
     def late_profiles():
         # under the profiler after every timed run: it slows later host

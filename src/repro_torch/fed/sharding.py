@@ -36,9 +36,21 @@ from attention's `wo` (R,H,hd,d) and the MoE's `wo` (R,E,f,d).  A
 dimension its mesh axis does not divide falls back to replication
 (xlstm-125m has 4 heads against a 16-way model axis).  The specs are
 read by the dry-run (`launch.dryrun`), which counts each device's share
-of every leaf from them; placing tensors by them on a device mesh (the
-reference's `to_named`) waits for a real device mesh (ROADMAP.md Queue
-1, item 9).
+of every leaf from them.  Placing tensors by them on a device mesh (the
+reference's `to_named`) has no counterpart: the port's worker mesh is a
+group of processes over the workers alone, laid out as follows.
+
+The launcher's layout of the federated LLM state (`llm_worker_specs`,
+`shard_fed_state`, `gather_fed_state`) is the reference's
+`launch/train.py _worker_mesh_put` on a one-axis "data" mesh of
+processes: the worker-stacked leaves (X1, X2, X3, theta, stale_lam,
+stale_theta, z2) split their leading N axis, the b2 / b3 blocks of both
+polytopes their worker axis (axis 1), and every other leaf is
+replicated.  One deliberate difference: where N does not divide over
+the shards the reference replicates the stacked leaves and GSPMD
+computes every worker on every device; a process per shard could only
+do the same by computing those workers on every rank and dividing
+their sums by the shard count, so here it raises `ValueError`.
 """
 from __future__ import annotations
 
@@ -111,8 +123,9 @@ def worker_data_specs(data, axis: str = WORKER_AXIS, lead: Tuple = ()):
 # one shard's block, and the global state back
 # ---------------------------------------------------------------------------
 
-def _n_local(n_workers: int, n_shards: int) -> int:
-    if n_workers % n_shards != 0:
+def n_local(n_workers: int, n_shards: int) -> int:
+    """N / n_shards, or `ValueError` naming both numbers."""
+    if n_shards < 1 or n_workers % n_shards != 0:
         raise ValueError(f"{n_workers} workers do not partition over "
                          f"{n_shards} shards")
     return n_workers // n_shards
@@ -124,7 +137,7 @@ def shard_data(data, w: int, n_shards: int, dim: int = 0):
     leaves = tree_flatten(data)[0]
     if not leaves:
         return data
-    n_loc = _n_local(int(leaves[0].shape[dim]), n_shards)
+    n_loc = n_local(int(leaves[0].shape[dim]), n_shards)
     return tree_map(lambda x: x.narrow(dim, w * n_loc, n_loc), data)
 
 
@@ -132,7 +145,7 @@ def shard_problem(problem: TrilevelProblem, w: int, n_shards: int
                   ) -> TrilevelProblem:
     """The problem shard w runs: its workers' data rows, `n_workers` its
     block's width (the objectives keep whatever they close over)."""
-    n_loc = _n_local(problem.n_workers, n_shards)
+    n_loc = n_local(problem.n_workers, n_shards)
     return dataclasses.replace(problem, n_workers=n_loc,
                                data=shard_data(problem.data, w, n_shards))
 
@@ -425,3 +438,94 @@ def local_bytes(tree, specs, mesh) -> int:
                * x.element_size()
                for x, sp in zip(tree_flatten(tree)[0],
                                 spec_leaves(specs, tree)))
+
+
+# ---------------------------------------------------------------------------
+# the federated LLM state on a worker mesh (the launcher's layout)
+# ---------------------------------------------------------------------------
+
+LLM_AXIS = "data"
+# FedLLMState fields whose leaves lead with the worker axis (N, ...)
+_LLM_STACKED = {"X1", "X2", "X3", "theta", "stale_lam", "stale_theta", "z2"}
+# the polytopes, whose b2 / b3 blocks carry the worker axis second
+_LLM_CUTS = {"cuts", "cuts_i"}
+
+
+def _llm_worker_dim(path):
+    """The worker axis of a `FedLLMState` leaf: 0, 1, or None for a
+    replicated leaf."""
+    names = [e.name for e in path if isinstance(e, GetAttrKey)]
+    head = names[0] if names else ""
+    if head in _LLM_STACKED:
+        return 0
+    if head in _LLM_CUTS and len(names) > 1 and names[1] in ("b2", "b3"):
+        return 1
+    return None
+
+
+def llm_worker_specs(state, n_shards: int, axis: str = LLM_AXIS):
+    """The spec of every leaf of a global `FedLLMState` (a `FedLLMState`
+    of tuples): `(axis,)` for the worker-stacked leaves, `(None, axis)`
+    for the polytopes' b2 / b3 blocks, `()` for the replicated rest;
+    the rule of the reference's `_worker_mesh_put`, leaf for leaf."""
+    n_local(int(state.X1.shape[0]), n_shards)
+    specs = {0: (axis,), 1: (None, axis), None: ()}
+    return map_with_path(lambda p, _: specs[_llm_worker_dim(p)], state)
+
+
+def shard_fed_state(state, w: int, n_shards: int):
+    """Shard w's `FedLLMState`: its workers' rows of the worker-stacked
+    leaves and of the b-blocks (views), every other leaf as it is."""
+    n_loc = n_local(int(state.X1.shape[0]), n_shards)
+
+    def block(path, x):
+        d = _llm_worker_dim(path)
+        return x if d is None else x.narrow(d, w * n_loc, n_loc)
+
+    return map_with_path(block, state)
+
+
+def _as_bits(x: torch.Tensor) -> torch.Tensor:
+    """x flattened, with a dtype every backend gathers (bf16 as its bytes;
+    gloo gathers no 16-bit type but f16)."""
+    x = x.contiguous().reshape(-1)
+    return x.view(torch.uint8) if x.dtype == torch.bfloat16 else x
+
+
+def _from_bits(bits: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of `_as_bits`: a tensor shaped and typed as `like`."""
+    return bits.view(like.dtype).reshape(like.shape)
+
+
+def gather_fed_state(local, mesh, label: str = "gather"):
+    """The global `FedLLMState` on every shard from each shard's `local`
+    block: one all-gather per dtype (bf16 as its bits), the worker axes
+    concatenated in shard order; the round trip with `shard_fed_state`
+    is exact.  Raises `RuntimeError` naming the replicated leaves that
+    are not bitwise the same on every shard."""
+    pairs = tree_leaves_with_path(local)
+    leaves, tdef = tree_flatten(local)
+    bits = [_as_bits(x) for x in leaves]
+    per_shard = [list(bits) for _ in range(mesh.size)]
+    for dtype in dict.fromkeys(x.dtype for x in bits):
+        idx = [i for i, x in enumerate(bits) if x.dtype == dtype]
+        buf = torch.cat([bits[i].reshape(-1) for i in idx])
+        for w, part in enumerate(mesh.all_gather(buf, label=label)):
+            pieces = torch.split(part, [bits[i].numel() for i in idx])
+            for i, piece in zip(idx, pieces):
+                per_shard[w][i] = piece
+    out, differ = [], []
+    for i, (path, x) in enumerate(pairs):
+        parts = [_from_bits(per_shard[w][i], x) for w in range(mesh.size)]
+        d = _llm_worker_dim(path)
+        if d is not None:
+            out.append(torch.cat(parts, dim=d))
+            continue
+        if not all(torch.equal(parts[0], q) for q in parts[1:]):
+            differ.append(".".join(str(e[0]) for e in path))
+        # a copy: the piece is a view of the whole gathered buffer
+        out.append(parts[0].clone())
+    if differ:
+        raise RuntimeError("replicated leaves of the federated state "
+                           f"differ between shards: {differ}")
+    return tree_unflatten(tdef, out)

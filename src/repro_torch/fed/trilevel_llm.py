@@ -417,15 +417,12 @@ def _bmask(active, x):
     return active.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
 
 
-def afto_llm_step(cfg: ModelConfig, hyper: FedHyper,
-                  state: FedLLMState, batch: Dict[str, Any],
-                  active: torch.Tensor) -> FedLLMState:
-    """batch: worker-stacked {"val_tokens": (N,b,S), "tokens": (N,b,S)}.
-    active: (N,) mask."""
-    t = state.t
+def _step_workers(cfg: ModelConfig, hyper: FedHyper, state: FedLLMState,
+                  batch: Dict[str, Any], active: torch.Tensor):
+    """The workers' half of the step (Eq. 16): (X1, X2, X3) of the
+    workers in `state`, whose rows, cut b-blocks, stale views, batch
+    rows and `active` entries it holds (all N, or a shard's block)."""
     seed = hyper.seed_ii
-
-    # ---- workers (Eq. 16)
     g3_f1 = _f1_grads(cfg, hyper, state.X3, batch)
     g3_cut = _contract_b(hyper, state.cuts, state.stale_lam, "b3",
                          state.z3, seed)
@@ -442,21 +439,20 @@ def afto_llm_step(cfg: ModelConfig, hyper: FedHyper,
         state.X2, g2_cut)
     # x1: f1 has no phi-gradient; theta (stale) + no cut block -> dual pull
     X1 = state.X1 - hyper.eta_x * active[:, None] * state.stale_theta
+    return X1, X2, X3
 
-    # ---- master (Eqs. 17-19)
-    gz1 = -torch.sum(state.theta, dim=0) \
-        + torch.einsum("p,pd->d", state.lam * state.cuts.active,
-                       state.cuts.a1)
-    z1 = state.z1 - hyper.eta_z * gz1
-    gz2 = _contract_a(hyper, state.cuts, state.lam, "a2", state.z2, seed)
-    z2 = tree_map(lambda z, g: z - weak(hyper.eta_z, z) * g.to(z.dtype),
-                  state.z2, gz2)
-    gz3 = _contract_a(hyper, state.cuts, state.lam, "a3", state.z3, seed)
-    z3 = tree_map(lambda z, g: z - weak(hyper.eta_z, z) * g.to(z.dtype),
-                  state.z3, gz3)
 
-    # ---- duals (Eqs. 20/21)
-    cutval = eval_llm_cuts(hyper, state.cuts, z1, z2, z3, X2, X3, seed)
+def _z_step(hyper: FedHyper, z, g):
+    """z - eta_z g, leafwise in z's dtype."""
+    return tree_map(lambda zz, gg: zz - weak(hyper.eta_z, zz)
+                    * gg.to(zz.dtype), z, g)
+
+
+def _step_duals(hyper: FedHyper, state: FedLLMState, active, cutval,
+                X1, X2, X3, z1, z2, z3) -> FedLLMState:
+    """The dual updates (Eqs. 20/21) and the stale views of the newly
+    active workers, from the step's new variables and cut values."""
+    t = state.t
     lam = torch.clamp(
         state.lam + hyper.eta_lambda * (cutval - hyper.c1(t) * state.lam),
         0.0, math.sqrt(hyper.alpha4)) * state.cuts.active
@@ -473,6 +469,31 @@ def afto_llm_step(cfg: ModelConfig, hyper: FedHyper,
     return dataclasses.replace(
         state, X1=X1, X2=X2, X3=X3, z1=z1, z2=z2, z3=z3, theta=theta,
         lam=lam, stale_lam=stale_lam, stale_theta=stale_theta, t=t + 1)
+
+
+def afto_llm_step(cfg: ModelConfig, hyper: FedHyper,
+                  state: FedLLMState, batch: Dict[str, Any],
+                  active: torch.Tensor) -> FedLLMState:
+    """batch: worker-stacked {"val_tokens": (N,b,S), "tokens": (N,b,S)}.
+    active: (N,) mask."""
+    seed = hyper.seed_ii
+
+    # ---- workers (Eq. 16)
+    X1, X2, X3 = _step_workers(cfg, hyper, state, batch, active)
+
+    # ---- master (Eqs. 17-19)
+    gz1 = -torch.sum(state.theta, dim=0) \
+        + torch.einsum("p,pd->d", state.lam * state.cuts.active,
+                       state.cuts.a1)
+    z1 = state.z1 - hyper.eta_z * gz1
+    z2 = _z_step(hyper, state.z2, _contract_a(hyper, state.cuts, state.lam,
+                                              "a2", state.z2, seed))
+    z3 = _z_step(hyper, state.z3, _contract_a(hyper, state.cuts, state.lam,
+                                              "a3", state.z3, seed))
+
+    # ---- duals (Eqs. 20/21)
+    cutval = eval_llm_cuts(hyper, state.cuts, z1, z2, z3, X2, X3, seed)
+    return _step_duals(hyper, state, active, cutval, X1, X2, X3, z1, z2, z3)
 
 
 # ---------------------------------------------------------------------------
@@ -544,36 +565,70 @@ def _rollout2(cfg, hyper: FedHyper, z1, z3, X2_0, Z2_0, X3, batch,
     return X2, Z2, gamma
 
 
-def _add_llm_cut(hyper: FedHyper, cuts: LLMCutSet, grads: Dict[str, Any],
-                 point: Dict[str, Any], h0, eps, mu, bound, t, seed
-                 ) -> LLMCutSet:
-    # integer eviction scores; argmin takes the first index of a tie
+def _cut_slot(cuts: LLMCutSet):
+    """The slot a new cut takes: the first free one, else the oldest
+    (integer eviction scores; argmin takes the first index of a tie)."""
     score = torch.where(cuts.active > 0, cuts.age,
                         torch.full_like(cuts.age, -(2 ** 30)))
-    slot = torch.argmin(score)
-    gv0 = torch.zeros((), dtype=torch.float32, device=score.device)
-    v0_sq = torch.zeros((), dtype=torch.float32, device=score.device)
-    for k in grads:
-        gv0 = gv0 + tree_dot(grads[k], point[k])
-        v0_sq = v0_sq + tree_norm_sq(point[k])
-    c = eps + mu * (bound + v0_sq) - h0 + gv0
+    return torch.argmin(score)
+
+
+def _write_cut(hyper: FedHyper, cuts: LLMCutSet, grads: Dict[str, Any],
+               slot, c, t, seed, sketched=()) -> LLMCutSet:
+    """`cuts` with `slot` holding the cut of coefficient blocks `grads`
+    and constant `c`, made at t; a block named in `sketched` is its
+    sketch already (a worker mesh sums the shards' sketches)."""
+    dev = cuts.c.device
 
     def block(name, per_worker):
         cur = getattr(cuts, name)
         if name not in grads:
             return cur
+        if name in sketched:
+            return _set_row(cur, slot, grads[name])
         return _store_block(hyper, cur, grads[name], slot, seed, per_worker)
 
     a1_row = grads.get("a1", torch.zeros((N_PHI,), dtype=torch.float32,
-                                         device=score.device))
+                                         device=dev))
     return LLMCutSet(
         a1=_set_row(cuts.a1, slot, a1_row),
         a2=block("a2", False), a3=block("a3", False),
         b2=block("b2", True), b3=block("b3", True),
         c=_set_row(cuts.c, slot, c),
-        active=_set_row(cuts.active, slot,
-                        torch.ones((), device=score.device)),
+        active=_set_row(cuts.active, slot, torch.ones((), device=dev)),
         age=_set_row(cuts.age, slot, torch.as_tensor(t)))
+
+
+def _add_llm_cut(hyper: FedHyper, cuts: LLMCutSet, grads: Dict[str, Any],
+                 point: Dict[str, Any], h0, eps, mu, bound, t, seed
+                 ) -> LLMCutSet:
+    slot = _cut_slot(cuts)
+    gv0 = torch.zeros((), dtype=torch.float32, device=cuts.c.device)
+    v0_sq = torch.zeros((), dtype=torch.float32, device=cuts.c.device)
+    for k in grads:
+        gv0 = gv0 + tree_dot(grads[k], point[k])
+        v0_sq = v0_sq + tree_norm_sq(point[k])
+    c = eps + mu * (bound + v0_sq) - h0 + gv0
+    return _write_cut(hyper, cuts, grads, slot, c, t, seed)
+
+
+def _drop_inactive(state: FedLLMState, cuts_i: LLMCutSet,
+                   cuts_ii: LLMCutSet, gamma_k) -> FedLLMState:
+    """The drop rule (Eq. 25), newly-added cuts exempt, and the
+    refreshed state."""
+    t = state.t
+    fresh_i = (cuts_i.age == t).float()
+    keep_i = ((torch.abs(gamma_k) > 1e-8).float() + fresh_i) > 0
+    cuts_i = dataclasses.replace(cuts_i,
+                                 active=cuts_i.active * keep_i.float())
+    fresh_ii = (cuts_ii.age == t).float()
+    keep_ii = ((torch.abs(state.lam) > 1e-8).float() + fresh_ii) > 0
+    cuts_ii = dataclasses.replace(cuts_ii,
+                                  active=cuts_ii.active * keep_ii.float())
+
+    return dataclasses.replace(
+        state, cuts_i=cuts_i, cuts=cuts_ii,
+        lam=state.lam * cuts_ii.active, gamma_k=gamma_k)
 
 
 def cut_refresh_llm(cfg: ModelConfig, hyper: FedHyper,
@@ -626,19 +681,7 @@ def cut_refresh_llm(cfg: ModelConfig, hyper: FedHyper,
          "b2": state.X2, "b3": state.X3},
         h0_ii, hyper.eps_ii, hyper.mu_ii, bound_ii, t, hyper.seed_ii)
 
-    # ---- drop rule (Eq. 25), newly-added cuts exempt
-    fresh_i = (cuts_i.age == t).float()
-    keep_i = ((torch.abs(gamma_k) > 1e-8).float() + fresh_i) > 0
-    cuts_i = dataclasses.replace(cuts_i,
-                                 active=cuts_i.active * keep_i.float())
-    fresh_ii = (cuts_ii.age == t).float()
-    keep_ii = ((torch.abs(state.lam) > 1e-8).float() + fresh_ii) > 0
-    cuts_ii = dataclasses.replace(cuts_ii,
-                                  active=cuts_ii.active * keep_ii.float())
-
-    return dataclasses.replace(
-        state, cuts_i=cuts_i, cuts=cuts_ii,
-        lam=state.lam * cuts_ii.active, gamma_k=gamma_k)
+    return _drop_inactive(state, cuts_i, cuts_ii, gamma_k)
 
 
 # ---------------------------------------------------------------------------

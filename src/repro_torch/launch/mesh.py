@@ -35,9 +35,10 @@ meshes (`AbstractMesh`: axis names and sizes, no devices), which the LLM
 sharding rules (`fed.sharding.param_specs`) and the dry-run
 (`launch.dryrun`) read: `make_production_mesh()` is the reference's
 (16, 16) ("data", "model") pod and `make_production_mesh(multi_pod=
-True)` its (2, 16, 16) ("pod", "data", "model") pair of pods.  Placing
-tensors on a real `torch.distributed` device mesh of that layout waits
-for the mesh-workers slice (ROADMAP.md Queue 1, item 9).
+True)` its (2, 16, 16) ("pod", "data", "model") pair of pods.  They
+are counted only: the worker meshes that run (the engines' and
+`launch.train --mesh-workers`') split the federation's workers, one
+process a shard, and no model axis.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@ with the reference's `_train_args` and `_tiny_cfg`
 (tests/test_launchers.py): the chunk, log and checkpoint crossings of
 the chunked loop, chunked against eager bit for bit, a streamed run
 resumed from step 4 against the uninterrupted one, the driver started
-from the reference's state against the reference's eager `run_afto`, and
-the CLI as a subprocess."""
+from the reference's state against the reference's eager `run_afto`, the
+refusals of `--mesh-workers`, and the CLI as a subprocess, unsharded and
+over 2 gloo ranks (the mesh itself: tests/test_torch_train_mesh.py)."""
 import argparse
 import os
 import shutil
@@ -196,22 +197,38 @@ def test_driver_matches_reference_eager_run():
         assert g["sim_time"] == w["sim_time"]
 
 
-def test_mesh_workers_and_eager_stream_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train.run_afto(_tiny_cfg(), _train_args(mesh_workers=2))
-    with pytest.raises(ValueError, match="--engine scan"):
-        train.run_afto(_tiny_cfg(), _train_args(engine="eager",
-                                                stream=True))
+@pytest.mark.parametrize("overrides,match", [
+    (dict(mesh_workers=2, engine="eager"), "--mesh-workers requires "
+     "--engine scan"),
+    (dict(mesh_workers=2, resume=True, ckpt_dir="unused"),
+     "--resume with --mesh-workers is not supported"),
+    (dict(mesh_workers=3, workers=4), "4 workers do not partition over 3 "
+     "shards"),
+    (dict(engine="eager", stream=True), "--stream requires --engine scan"),
+], ids=["mesh-eager", "mesh-resume", "mesh-indivisible", "eager-stream"])
+def test_mesh_workers_and_eager_stream_raise(overrides, match):
+    """`--mesh-workers` runs (tests/test_torch_train_mesh.py); what it
+    refuses, as the reference does (--engine eager, --resume), and N not
+    a multiple of the shard count (the reference replicates such a state;
+    fed/sharding.py); and --stream without --engine scan."""
+    with pytest.raises(ValueError, match=match):
+        train.run_afto(_tiny_cfg(), _train_args(**overrides))
 
 
-def test_train_cli_on_the_cpu(tmp_path):
+@pytest.mark.parametrize("extra", [
+    ("--workers", "2"),
+    ("--workers", "4", "--mesh-workers", "2"),
+], ids=["unsharded", "mesh-workers"])
+def test_train_cli_on_the_cpu(tmp_path, extra):
+    """The CLI, streamed with a checkpoint, and over 2 gloo ranks (rank 0
+    writes the gathered checkpoint; the history lines come back)."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
-         "--reduced", "--steps", "4", "--workers", "2", "--batch", "1",
+         "--reduced", "--steps", "4", *extra, "--batch", "1",
          "--seq", "17", "--t-pre", "2", "--log-every", "2", "--stream",
          "--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "4"],
         env=env, capture_output=True, text=True, timeout=600, cwd=REPO)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert '"loss"' in out.stdout
+    assert out.stdout.count('"loss"') == 2
     assert _ckpt_steps(tmp_path / "ck") == [4]
